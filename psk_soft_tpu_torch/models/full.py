@@ -1,0 +1,196 @@
+"""Single-kernel steady-state pipeline built on kernel B1
+(port of ``psk_soft_tpu/models/full.py:24-297, 352-398``).
+
+Usage: run the feed-forward pipeline (models/blockpsk) through warm-up,
+convert the converged carry with :func:`full_from_ff`, then stream
+time-major blocks through :func:`demod_block_full` -- the whole demod is one
+kernel launch per block.
+
+The window carry after a block is a view of that block's last rows, so the
+"rolling window" of the JAX package (window read in place from the previous
+block's planes) is what :func:`demod_block_full` always does: no window
+buffer is written or re-read.  :func:`demod_block_full_rolling` keeps the
+JAX signature and calls the same launch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import DemodConfig
+from ..ops.cuda import demod_kernel
+from ..ops.phase import UNWRAP_TREND_LEN
+from .psk import DemodOutputs
+
+_MF_LATER = ("a matched filter on the steady kernel is not ported yet "
+             "(ROADMAP: kernel B1 mode 'matched filter')")
+
+
+class FullState(NamedTuple):
+    win_re: torch.Tensor   # ((num_avg-1)*sps, C) float32
+    win_im: torch.Tensor   # ((num_avg-1)*sps, C) float32
+    planes: torch.Tensor   # (state_rows(phase_avg), C) float32
+
+
+class FullOutputs(NamedTuple):
+    """Time-major symbol-rate planes (S, C); bits are packed LSB-first ints.
+    soft_re/soft_im are float32, or int8 when the kernel ran with
+    ``soft_i8_scale`` (dequantize as ``plane / scale``).  phase and
+    sample_index are None with debug ports off."""
+
+    soft_re: torch.Tensor
+    soft_im: torch.Tensor
+    phase: torch.Tensor | None
+    bits_packed: torch.Tensor
+    sample_index: torch.Tensor | None
+
+
+class QuantSoft(NamedTuple):
+    """Channel-major int8-quantized soft decisions inside DemodOutputs.soft
+    (kernel ``soft_i8_scale`` mode): dequantize as ``(re_q + 1j*im_q) /
+    scale``."""
+
+    re_q: torch.Tensor | np.ndarray    # (C, S) int8
+    im_q: torch.Tensor | np.ndarray    # (C, S) int8
+    scale: float
+
+
+def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
+    """Convert a *converged* channel-batched FFState carry to the kernel's
+    carry, on the FFState's device.  Host-side numpy, called once at the
+    warm-up -> steady transition."""
+    k = UNWRAP_TREND_LEN
+    n1 = cfg.phase_avg - 1
+    if n1 < k:
+        raise ValueError(f"full pipeline requires phase_avg >= {k + 1}")
+    if cfg.matched_filter != "none":
+        raise ValueError(_MF_LATER)
+    device = ff_state.phase_hist.device
+    hist = ff_state.phase_hist.cpu().numpy()      # (C, n-1) oldest..newest
+    c = hist.shape[0]
+    win = ff_state.win_samples.cpu().numpy()      # (C, A-1, sps)
+    flat = win.reshape(c, -1)
+    win_re = np.ascontiguousarray(flat.real.T).astype(np.float32)
+    win_im = np.ascontiguousarray(flat.imag.T).astype(np.float32)
+
+    rs = demod_kernel.state_rows(cfg.phase_avg, k)
+    planes = np.zeros((rs, c), np.float32)
+    planes[:n1] = hist.T
+    tail = hist[:, n1 - (k - 1):]                 # (C, k-1) newest k-1
+    planes[n1:n1 + k - 1] = np.cos(tail).T
+    planes[n1 + k - 1:n1 + 2 * (k - 1)] = np.sin(tail).T
+    misc = n1 + 2 * (k - 1)
+    last_k = hist[:, n1 - k:]                     # (C, k)
+    ang_prev = np.arctan2(np.sin(last_k).sum(-1), np.cos(last_k).sum(-1))
+    last_phase = ff_state.last_phase.cpu().numpy()
+    planes[misc] = ang_prev
+    planes[misc + 1] = (2 * np.pi) * np.round(
+        (last_phase - ang_prev) / (2 * np.pi))
+    last_any = ff_state.last_any.cpu().numpy()
+    planes[misc + 2] = last_any.real
+    planes[misc + 3] = last_any.imag
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return FullState(win_re=to(win_re), win_im=to(win_im), planes=to(planes))
+
+
+def _kernel_kwargs(cfg: DemodConfig, pack_out, soft_i8_scale, debug_ports):
+    if cfg.sps <= 1:
+        raise ValueError("full kernel supports sps > 1; use models.blockpsk "
+                         "for the sps=1 passthrough")
+    if cfg.matched_filter != "none":
+        raise ValueError(_MF_LATER)
+    return dict(sps=cfg.sps, num_avg=cfg.num_avg, phase_avg=cfg.phase_avg,
+                m=cfg.constellation_size, diff=cfg.differential,
+                timing_interp=cfg.timing_interp, pack_out=pack_out,
+                soft_i8_scale=soft_i8_scale, debug_ports=debug_ports)
+
+
+def demod_block_full(cfg: DemodConfig, state: FullState,
+                     x_re: torch.Tensor, x_im: torch.Tensor, *,
+                     pack_out: bool | None = None,
+                     soft_i8_scale: float | None = None,
+                     debug_ports: bool = True):
+    """One steady-state block through kernel B1.
+
+    x_re/x_im: (T, C) float32 time-major planes, T = S * sps, with
+    T >= (num_avg-1)*sps.  Returns (new FullState, FullOutputs); the new
+    window planes are views of the block's last rows.
+    """
+    kw = _kernel_kwargs(cfg, pack_out, soft_i8_scale, debug_ports)
+    keep = (cfg.num_avg - 1) * cfg.sps
+    if x_re.shape[0] < keep:
+        raise ValueError(
+            f"block must be >= (num_avg-1)*sps = {keep} samples, got "
+            f"{x_re.shape[0]}; pad the final block (see "
+            f"FullKernelBatchEngine.flush)")
+    soft_re, soft_im, phase, bits, idx, planes = demod_kernel.demod_full_tm(
+        state.win_re, state.win_im, x_re, x_im, state.planes, **kw)
+    new_state = FullState(win_re=x_re[x_re.shape[0] - keep:],
+                          win_im=x_im[x_im.shape[0] - keep:], planes=planes)
+    return new_state, FullOutputs(soft_re, soft_im, phase, bits, idx)
+
+
+def demod_block_full_rolling(cfg: DemodConfig, planes: torch.Tensor,
+                             prev_re: torch.Tensor, prev_im: torch.Tensor,
+                             x_re: torch.Tensor, x_im: torch.Tensor, *,
+                             pack_out: bool | None = None,
+                             soft_i8_scale: float | None = None,
+                             debug_ports: bool = True):
+    """Steady-state block with the window taken from the previous block's
+    planes (their last ``(num_avg-1)*sps`` rows, a view).  Returns
+    ``(planes', FullOutputs)``."""
+    keep = (cfg.num_avg - 1) * cfg.sps
+    if prev_re.shape[0] < keep:
+        raise ValueError(f"prev planes must hold >= {keep} rows")
+    state = FullState(win_re=prev_re[prev_re.shape[0] - keep:],
+                      win_im=prev_im[prev_im.shape[0] - keep:], planes=planes)
+    new_state, out = demod_block_full(cfg, state, x_re, x_im,
+                                      pack_out=pack_out,
+                                      soft_i8_scale=soft_i8_scale,
+                                      debug_ports=debug_ports)
+    return new_state.planes, out
+
+
+def to_demod_outputs(cfg: DemodConfig, out: FullOutputs,
+                     soft_i8_scale: float | None = None) -> DemodOutputs:
+    """Adapter to the channel-major DemodOutputs.  phase and sample_index
+    stay None when the kernel ran with debug ports off.  int8 soft planes
+    need the ``soft_i8_scale`` they ran with and come back as a
+    :class:`QuantSoft` (still quantized)."""
+    if out.soft_re.dtype == torch.int8:
+        if soft_i8_scale is None:
+            raise ValueError("kernel emitted int8 soft planes; pass the "
+                             "soft_i8_scale it ran with")
+        soft = QuantSoft(out.soft_re.T, out.soft_im.T, float(soft_i8_scale))
+        vshape = soft.re_q.shape
+    else:
+        soft = torch.complex(out.soft_re.T, out.soft_im.T)
+        vshape = soft.shape
+    packed = out.bits_packed.T
+    bits = torch.stack([(packed >> i) & 1
+                        for i in range(max(3, cfg.bits_per_symbol))],
+                       dim=-1).to(torch.int8)
+    return DemodOutputs(
+        soft=soft,
+        bits=bits,
+        phase=None if out.phase is None else out.phase.T,
+        sample_index=(None if out.sample_index is None
+                      else out.sample_index.T),
+        valid=torch.ones(vshape, dtype=torch.bool,
+                         device=out.soft_re.device),
+    )
+
+
+def dequantize_soft(soft) -> np.ndarray:
+    """Host-side complex64 soft decisions from a host QuantSoft (identity
+    for already-complex arrays)."""
+    if isinstance(soft, QuantSoft):
+        inv = 1.0 / float(soft.scale)
+        out = np.empty(np.shape(soft.re_q), np.complex64)
+        out.real = np.asarray(soft.re_q, np.float32) * inv
+        out.imag = np.asarray(soft.im_q, np.float32) * inv
+        return out
+    return np.asarray(soft)

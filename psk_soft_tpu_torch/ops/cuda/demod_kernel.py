@@ -1,0 +1,343 @@
+"""Kernel B1: the fused steady-state demod, hand-written CUDA for Hopper
+(port of ``psk_soft_tpu/ops/pallas/demod_kernel.py:41-835``).
+
+Three pieces, as for every kernel of the port:
+
+* ``csrc/demod_full.cu``: the CUDA C++ kernel (its header note says what
+  bounds it on an H100), built with nvcc for sm_90a into
+  ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.
+* :func:`demod_full_tm_ref`: the same function in plain PyTorch, on any
+  device.  It follows the kernel's stages (9-tap trend on every symbol,
+  prefix unwrap, endpoint FIR), not blockpsk's strided unwrap.
+* :func:`demod_full_tm`: the wrapper.  A CPU tensor goes to the plain
+  version; a CUDA tensor launches the kernel, and a failed build, load or
+  launch raises.  ``demod_full_tm.launches`` counts kernel launches.
+
+The carry plane keeps the Pallas layout (:func:`state_rows`), so
+``models/full.full_from_ff`` and the tests compare planes directly.  One
+named divergence from the Pallas kernel: the M*2pi re-wrap of the phase
+history happens once per block (the Pallas kernel does it at the end of
+every TPU time tile), from the last unwrapped phase.  Soft decisions and
+bits are unchanged by it; the phase port and the carry's phase rows can
+differ by whole multiples of M*2pi where the Pallas kernel re-wrapped
+mid-block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from ...ops.linear_fit import endpoint_fir_weights
+from ...ops.phase import TWO_PI, UNWRAP_TREND_LEN
+from ...utils.build import REPO_ROOT, build_shared
+
+SOURCE = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "demod_full.cu"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def state_rows(phase_avg: int, k: int = UNWRAP_TREND_LEN) -> int:
+    """Rows of the carry plane: u_hist | c_re hist | c_im hist | misc(8),
+    padded up to a multiple of 8 (the Pallas layout, kept for parity).
+    misc = [ang_prev, unwrap_acc, last_any_re, last_any_im, 4 rows passed
+    through unchanged]."""
+    raw = (phase_avg - 1) + 2 * (k - 1) + 8
+    return -(-raw // 8) * 8
+
+
+def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
+                phase_avg, m, pack_out, mf_taps, timing_interp, mixed,
+                in_scale):
+    """Validate everything both versions take; raise on anything else."""
+    if mf_taps is not None:
+        raise ValueError("an in-kernel matched filter is not ported yet "
+                         "(ROADMAP: kernel B1 mode 'matched filter')")
+    if timing_interp:
+        raise ValueError("timing_interp is not ported yet (ROADMAP: kernel "
+                         "B1 mode 'timing_interp')")
+    if mixed:
+        raise ValueError("mixed per-channel modes are not ported yet "
+                         "(ROADMAP: kernel B1 mode 'mixed')")
+    if x_re.dtype == torch.int16 or in_scale != 1.0:
+        raise ValueError("int16 ingest (in_scale) is not ported yet "
+                         "(ROADMAP: kernel B1 mode 'int16 ingest')")
+    k = UNWRAP_TREND_LEN
+    if phase_avg < k + 1:
+        raise ValueError(f"full kernel requires phase_avg >= {k + 1}")
+    if num_avg < 2:
+        raise ValueError("full kernel requires num_avg >= 2")
+    if sps < 2:
+        raise ValueError("full kernel supports sps > 1")
+    if m not in (2, 4, 8, 16, 32):
+        raise ValueError(f"unsupported constellation size {m}")
+    planes = (win_re, win_im, x_re, x_im, state_planes)
+    if any(t.dtype != torch.float32 for t in planes):
+        raise ValueError("planes and state must be float32")
+    if any(t.ndim != 2 for t in planes):
+        raise ValueError("planes and state must be 2-D (rows, C)")
+    if any(t.device != x_re.device for t in planes):
+        raise ValueError("planes and state must be on one device")
+    T, C = x_re.shape
+    if x_im.shape != (T, C) or T == 0 or T % sps:
+        raise ValueError(f"x planes must be (S*sps, C) with S >= 1, got "
+                         f"{tuple(x_re.shape)} / {tuple(x_im.shape)}")
+    wrows = (num_avg - 1) * sps
+    if win_re.shape != (wrows, C) or win_im.shape != (wrows, C):
+        raise ValueError(f"win planes must be {(wrows, C)}")
+    rs = state_rows(phase_avg)
+    if state_planes.shape != (rs, C):
+        raise ValueError(f"state_planes must be {(rs, C)}, got "
+                         f"{tuple(state_planes.shape)}")
+    if pack_out is None:
+        pack_out = sps <= 128
+    elif pack_out and sps > 128:
+        raise ValueError(f"pack_out requires sps <= 128 (int8 index range),"
+                         f" got sps={sps}")
+    return pack_out
+
+
+def _alloc_outputs(S, C, device, pack_out, soft_i8_scale, debug_ports):
+    sdt = torch.float32 if soft_i8_scale is None else torch.int8
+    odt = torch.int8 if pack_out else torch.int32
+    soft_re = torch.empty((S, C), dtype=sdt, device=device)
+    soft_im = torch.empty((S, C), dtype=sdt, device=device)
+    bits = torch.empty((S, C), dtype=odt, device=device)
+    phase = idx = None
+    if debug_ports:
+        phase = torch.empty((S, C), dtype=torch.float32, device=device)
+        idx = torch.empty((S, C), dtype=odt, device=device)
+    return soft_re, soft_im, phase, bits, idx
+
+
+def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
+                      num_avg: int, phase_avg: int, m: int, diff: bool,
+                      pack_out: bool | None = None,
+                      soft_i8_scale: float | None = None,
+                      debug_ports: bool = True, mf_taps=None,
+                      timing_interp: bool = False, mixed: bool = False,
+                      in_scale: float = 1.0):
+    """Plain-PyTorch version of :func:`demod_full_tm` (same arguments and
+    outputs), whole-block tensor ops on any device."""
+    pack_out = _check_args(win_re, win_im, x_re, x_im, state_planes, sps=sps,
+                           num_avg=num_avg, phase_avg=phase_avg, m=m,
+                           pack_out=pack_out, mf_taps=mf_taps,
+                           timing_interp=timing_interp, mixed=mixed,
+                           in_scale=in_scale)
+    dev = x_re.device
+    T, C = x_re.shape
+    S = T // sps
+    k = UNWRAP_TREND_LEN
+    k1 = k - 1
+    n1 = phase_avg - 1
+    misc = n1 + 2 * k1
+    st = state_planes
+
+    # C2 timing: windowed bin energies (cumsum-diff), first-max, pick.
+    re = torch.cat([win_re, x_re])
+    im = torch.cat([win_im, x_im])
+    e = (re * re + im * im).reshape(S + num_avg - 1, sps, C)
+    cs = torch.cumsum(e, dim=0)
+    lower = torch.cat([torch.zeros_like(cs[:1]), cs[:S - 1]])
+    w = cs[num_avg - 1:] - lower                              # (S, sps, C)
+    b = torch.argmax(w, dim=1)                                # (S, C)
+    gather = lambda v: torch.gather(                          # noqa: E731
+        v[:S * sps].reshape(S, sps, C), 1, b.unsqueeze(1)).squeeze(1)
+    sel_re, sel_im = gather(re), gather(im)
+
+    # C3: M-th power phase.
+    zr, zi = sel_re, sel_im
+    for _ in range(m.bit_length() - 1):
+        zr, zi = zr * zr - zi * zi, 2.0 * zr * zi
+    raw = torch.atan2(zi, zr)
+
+    # Trend MA over the last k raw phases, prefix unwrap, residual.
+    ext_cre = torch.cat([st[n1:n1 + k1], torch.cos(raw)])
+    ext_cim = torch.cat([st[n1 + k1:n1 + 2 * k1], torch.sin(raw)])
+    t_re = ext_cre.unfold(0, k, 1).sum(-1)
+    t_im = ext_cim.unfold(0, k, 1).sum(-1)
+    ang_t = torch.atan2(t_im, t_re)
+    ang_shift = torch.cat([st[misc:misc + 1], ang_t[:-1]])
+    cum = torch.cumsum(torch.round((ang_t - ang_shift) / TWO_PI), dim=0)
+    acc = st[misc + 1]
+    t_unw = ang_t + acc - TWO_PI * cum
+    resid = raw - ang_t
+    u = t_unw + (resid - TWO_PI * torch.round(resid / TWO_PI))
+
+    # C1: endpoint-fit FIR over [u history | u].
+    ext_u = torch.cat([st[:n1], u])
+    est = ext_u.unfold(0, phase_avg, 1) @ _fir_weights(phase_avg, dev)
+
+    # C5: derotation or differential decode.
+    if diff:
+        pr = torch.cat([st[misc + 2:misc + 3], sel_re[:-1]])
+        pi_ = torch.cat([st[misc + 3:misc + 4], sel_im[:-1]])
+        pp = pr * pr + pi_ * pi_
+        inv = 1.0 / torch.where(pp == 0, torch.ones_like(pp), pp)
+        base_r = (sel_re * pr + sel_im * pi_) * inv
+        base_i = (sel_im * pr - sel_re * pi_) * inv
+        corr = torch.zeros_like(est)
+    else:
+        base_r, base_i = sel_re, sel_im
+        corr = -est / float(m)
+    if m == 4:
+        corr = corr + 0.7853981633974483
+    cph_r, cph_i = torch.cos(corr), torch.sin(corr)
+    s_r = base_r * cph_r - base_i * cph_i
+    s_i = base_r * cph_i + base_i * cph_r
+
+    # C6: slicing, packed LSB-first.
+    if m == 2:
+        code = (s_r < 0).to(torch.int32)
+    elif m == 4:
+        sgn_r = (s_r < 0).to(torch.int32)
+        sgn_i = (s_i < 0).to(torch.int32)
+        code = (sgn_r ^ sgn_i) + 2 * sgn_i
+    else:
+        ss = torch.atan2(s_i, s_r) * (m / TWO_PI)
+        ss = torch.where(ss < -0.5, ss + float(m), ss)
+        code = torch.floor(ss + 0.5).to(torch.int32) & (m - 1)
+
+    o_sre, o_sim, o_phase, o_bits, o_idx = _alloc_outputs(
+        S, C, dev, pack_out, soft_i8_scale, debug_ports)
+    if soft_i8_scale is None:
+        o_sre.copy_(s_r)
+        o_sim.copy_(s_i)
+    else:
+        o_sre.copy_(torch.clamp(torch.round(s_r * soft_i8_scale), -127, 127))
+        o_sim.copy_(torch.clamp(torch.round(s_i * soft_i8_scale), -127, 127))
+    o_bits.copy_(code)
+    if debug_ports:
+        o_phase.copy_(est)
+        o_idx.copy_(b)
+
+    # Carry update with the end-of-block M*2pi re-wrap (from u_last).
+    wrapv = TWO_PI * m
+    u_last = u[S - 1]
+    off = torch.where(u_last.abs() > wrapv,
+                      torch.round(u_last / wrapv) * wrapv,
+                      torch.zeros_like(u_last))
+    new = st.clone()
+    new[:n1] = ext_u[S:] - off
+    new[n1:n1 + k1] = ext_cre[S:]
+    new[n1 + k1:n1 + 2 * k1] = ext_cim[S:]
+    new[misc] = ang_t[S - 1]
+    new[misc + 1] = acc - TWO_PI * cum[S - 1] - off
+    new[misc + 2] = sel_re[S - 1]
+    new[misc + 3] = sel_im[S - 1]
+    return o_sre, o_sim, o_phase, o_bits, o_idx, new
+
+
+@functools.lru_cache(maxsize=None)
+def _fir_weights(phase_avg: int, device: torch.device) -> torch.Tensor:
+    """Endpoint-fit FIR weights (float32, oldest first) on ``device``."""
+    w = endpoint_fir_weights(phase_avg, dtype=np.float64).astype(np.float32)
+    return torch.as_tensor(w, device=device)
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (at first use) and load the kernel library.  Returns
+    (ctypes library, compiler output of this build or "")."""
+    path, log = build_shared(SOURCE, "demod_full", [nvcc_path()], NVCC_FLAGS)
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.psk_demod_full_tm.restype = i32
+    lib.psk_demod_full_tm.argtypes = (
+        [vp, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+        + [i32] * 9 + [ctypes.c_float, i32, vp])
+    lib.psk_demod_full_max_smem.restype = i32
+    lib.psk_demod_full_max_smem.argtypes = []
+    return lib, log
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
+                  num_avg: int, phase_avg: int, m: int, diff: bool,
+                  pack_out: bool | None = None,
+                  soft_i8_scale: float | None = None,
+                  debug_ports: bool = True, mf_taps=None,
+                  timing_interp: bool = False, mixed: bool = False,
+                  in_scale: float = 1.0):
+    """Run the fused steady-state demod over time-major planes.
+
+    Args:
+      win_re/win_im: ((num_avg-1)*sps, C) float32 timing-window planes (the
+        previous block's last rows; a view of them is fine).
+      x_re/x_im: (S*sps, C) float32 block planes.
+      state_planes: (state_rows(phase_avg), C) float32 carry.
+      m, diff: constellation size and differential decoding.
+      pack_out: int8 bits/sampleIndex planes (None: when sps <= 128).
+      soft_i8_scale: emit soft planes as int8 ``clip(round(s*scale),
+        -127, 127)``; bits and phase use the unquantized values.
+      debug_ports: False skips the phase and sampleIndex planes (None).
+      mf_taps, timing_interp, mixed, in_scale: later modes; raise.
+    Returns:
+      (soft_re, soft_im, phase, bits_packed, sample_index, new_state)
+      with (S, C) symbol-rate planes.
+
+    CPU tensors take :func:`demod_full_tm_ref`; CUDA tensors launch the
+    kernel on the current stream.
+    """
+    kwargs = dict(sps=sps, num_avg=num_avg, phase_avg=phase_avg, m=m,
+                  pack_out=pack_out, mf_taps=mf_taps,
+                  timing_interp=timing_interp, mixed=mixed,
+                  in_scale=in_scale)
+    planes = (win_re, win_im, x_re, x_im, state_planes)
+    if x_re.device.type == "cpu":
+        return demod_full_tm_ref(*planes, diff=diff,
+                                 soft_i8_scale=soft_i8_scale,
+                                 debug_ports=debug_ports, **kwargs)
+    if x_re.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_re.device}")
+    pack_out = _check_args(*planes, **kwargs)
+    if not all(t.is_contiguous() for t in planes):
+        raise ValueError("planes and state must be contiguous")
+    dev = x_re.device
+    T, C = x_re.shape
+    S = T // sps
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        smem = (sps + phase_avg - 1) * 32 * 4
+        if smem > lib.psk_demod_full_max_smem():
+            raise ValueError(f"sps + phase_avg - 1 = {sps + phase_avg - 1} "
+                             f"needs {smem} bytes of shared memory per "
+                             f"block, more than this device allows")
+        outs = _alloc_outputs(S, C, dev, pack_out, soft_i8_scale,
+                              debug_ports)
+        o_sre, o_sim, o_phase, o_bits, o_idx = outs
+        new_state = torch.empty_like(state_planes)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.psk_demod_full_tm(
+            _ptr(win_re), _ptr(win_im), win_re.shape[0], _ptr(x_re),
+            _ptr(x_im), _ptr(state_planes), _ptr(new_state),
+            _ptr(_fir_weights(phase_avg, dev)), _ptr(o_sre), _ptr(o_sim),
+            _ptr(o_phase), _ptr(o_bits), _ptr(o_idx), C, S, sps, num_avg,
+            phase_avg, m, int(bool(diff)), int(pack_out),
+            int(soft_i8_scale is not None),
+            float(soft_i8_scale or 0.0), state_planes.shape[0],
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")
+    demod_full_tm.launches += 1
+    return o_sre, o_sim, o_phase, o_bits, o_idx, new_state
+
+
+demod_full_tm.launches = 0

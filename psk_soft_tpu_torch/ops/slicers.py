@@ -1,0 +1,67 @@
+"""Symbol -> bit slicers for BPSK / QPSK / 8-PSK (+ 16/32-PSK extension)
+(port of ``psk_soft_tpu/ops/slicers.py:25-115``).
+
+The documented sign-based mapping of ``psk_soft.scd.xml:42-63``, bits
+LSB-first.  Each slicer returns an ``(..., 3)`` int8 tensor (``log2 M`` wide
+for 16/32-PSK) padded with zeros past ``bits_per_symbol``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def slice_bpsk(soft: torch.Tensor) -> torch.Tensor:
+    """BPSK: phase 0 -> 0, pi -> 1."""
+    b0 = (soft.real < 0).to(torch.int8)
+    z = torch.zeros_like(b0)
+    return torch.stack([b0, z, z], dim=-1)
+
+
+def slice_qpsk(soft: torch.Tensor) -> torch.Tensor:
+    """QPSK quadrants (+,+) -> 00, (-,+) -> 01, (-,-) -> 10, (+,-) -> 11,
+    value ``b0 + 2*b1``, bits emitted [b0, b1]."""
+    sr = (soft.real < 0).to(torch.int8)
+    si = (soft.imag < 0).to(torch.int8)
+    b0 = sr ^ si
+    return torch.stack([b0, si, torch.zeros_like(b0)], dim=-1)
+
+
+def slice_8psk(soft: torch.Tensor) -> torch.Tensor:
+    """8-PSK: phase k*pi/4 -> binary k, LSB-first."""
+    theta = torch.atan2(soft.imag, soft.real)
+    softsym = theta / math.pi * 4.0
+    softsym = torch.where(softsym < -0.5, softsym + 8.0, softsym)
+    sym = torch.floor(softsym + 0.5).to(torch.int32) & 7
+    return torch.stack([((sym >> i) & 1).to(torch.int8) for i in range(3)],
+                       dim=-1)
+
+
+def mpsk_code(m: int, soft: torch.Tensor) -> torch.Tensor:
+    """Generalized M-PSK symbol index for power-of-two m >= 8: phase
+    k*2pi/M -> binary k (values below -0.5 wrap up by +m; m aliases to 0)."""
+    theta = torch.atan2(soft.imag, soft.real)
+    softsym = theta * (m / (2.0 * math.pi))
+    softsym = torch.where(softsym < -0.5, softsym + m, softsym)
+    return torch.floor(softsym + 0.5).to(torch.int32) & (m - 1)
+
+
+def slice_mpsk(m: int, soft: torch.Tensor) -> torch.Tensor:
+    """Generalized M-PSK slicer, ``(..., max(3, log2 m))`` int8 planes."""
+    nb = max(3, (m - 1).bit_length())
+    sym = mpsk_code(m, soft)
+    return torch.stack([((sym >> i) & 1).to(torch.int8) for i in range(nb)],
+                       dim=-1)
+
+
+def slice_bits(constellation_size: int, soft: torch.Tensor) -> torch.Tensor:
+    """Dispatch on the constellation size."""
+    if constellation_size == 2:
+        return slice_bpsk(soft)
+    if constellation_size == 4:
+        return slice_qpsk(soft)
+    if constellation_size in (8, 16, 32):
+        return slice_mpsk(constellation_size, soft)
+    raise ValueError(f"unsupported constellation size {constellation_size}")

@@ -1,0 +1,126 @@
+"""ctypes bindings for the native plane bank (port of
+``psk_soft_tpu/runtime/native_bank.py:167-249`` over ``native/pskbank.cpp``).
+
+The bank deframes sample-interleaved multichannel frames straight to
+TIME-MAJOR re/im planes -- kernel B1's (T, C) input layout.  The library is
+compiled from ``native/pskbank.cpp`` with g++ into
+``build/psk_soft_tpu_torch/`` at first use (the prebuilt ``.so`` files in
+``native/`` belong to the JAX package and are not loaded).
+
+Overflow semantics: a push that would overflow drops everything queued and
+flags the next pop (``flushed=True``), which the consumer answers with a
+state reset (the reference's BulkIO queue flush, cpp/psk_soft.cpp:353-357).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+
+from ..utils.build import REPO_ROOT, build_shared
+
+SOURCE = REPO_ROOT / "native" / "pskbank.cpp"
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+
+
+@functools.lru_cache(maxsize=None)
+def _load_lib():
+    path, _ = build_shared(SOURCE, "pskbank", ["g++"], CXX_FLAGS)
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.pskplane_create.restype = vp
+    lib.pskplane_create.argtypes = [i32, i64, i32]
+    lib.pskplane_destroy.argtypes = [vp]
+    lib.pskplane_push_interleaved.restype = ctypes.c_int
+    lib.pskplane_push_interleaved.argtypes = [vp, vp, i64]
+    lib.pskplane_available.restype = i64
+    lib.pskplane_available.argtypes = [vp, i64, i64]
+    lib.pskplane_pop_planes.restype = i64
+    lib.pskplane_pop_planes.argtypes = [vp, vp, vp, i64,
+                                        ctypes.POINTER(i32)]
+    lib.pskplane_close.argtypes = [vp]
+    lib.pskplane_depth.restype = i64
+    lib.pskplane_depth.argtypes = [vp]
+    lib.pskplane_stats.argtypes = [vp, ctypes.POINTER(ctypes.c_uint64)]
+    return lib
+
+
+@dataclasses.dataclass
+class BankStats:
+    frames_in: int
+    samples_out: int
+    flushes: int
+    dropped_samples: int
+
+
+class NativePlaneBank:
+    """Lockstep multichannel ring that deframes to time-major re/im planes.
+
+    Interleaved complex64 frames are already time-major across channels,
+    so the native stage is a stride-2 re/im split and a pop is two
+    contiguous memcpys.  (The int16 wire format of the JAX bank comes with
+    B1's int16 ingest mode, a later ROADMAP step.)
+    """
+
+    def __init__(self, channels: int, capacity_samples: int = 1 << 20):
+        self._lib = _load_lib()
+        self.channels = int(channels)
+        self._h = self._lib.pskplane_create(self.channels,
+                                            int(capacity_samples), 4)
+        if not self._h:
+            raise ValueError("pskplane_create failed (bad args)")
+
+    def push_interleaved(self, frames: np.ndarray) -> bool:
+        """Push interleaved complex64 frames ((n, C), or float32 pairs of
+        length 2*n*C).  Returns True on overflow flush."""
+        arr = np.asarray(frames)
+        if np.iscomplexobj(arr):
+            arr = arr.astype(np.complex64, copy=False).view(np.float32)
+        arr = np.ascontiguousarray(arr, np.float32).ravel()
+        if arr.size % (2 * self.channels):
+            raise ValueError(
+                f"push must be whole frames of {self.channels} channels")
+        n_frames = arr.size // (2 * self.channels)
+        rc = self._lib.pskplane_push_interleaved(
+            self._h, arr.ctypes.data_as(ctypes.c_void_p), n_frames)
+        if rc < 0:
+            raise RuntimeError(f"pskplane_push_interleaved failed: {rc}")
+        return bool(rc)
+
+    def pop_planes(self, n: int, timeout: Optional[float] = None):
+        """Blocking pop of ``(re, im, flushed)`` with (n, C) float32 plane
+        arrays.  None on timeout."""
+        timeout_ms = -1 if timeout is None else max(0, int(timeout * 1000))
+        avail = self._lib.pskplane_available(self._h, int(n), timeout_ms)
+        if avail < n:
+            return None
+        re = np.empty((n, self.channels), np.float32)
+        im = np.empty((n, self.channels), np.float32)
+        flushed = ctypes.c_int32()
+        rc = self._lib.pskplane_pop_planes(
+            self._h, re.ctypes.data_as(ctypes.c_void_p),
+            im.ctypes.data_as(ctypes.c_void_p), int(n),
+            ctypes.byref(flushed))
+        if rc < 0:
+            return None     # raced with a concurrent consumer's pop
+        return re, im, bool(flushed.value)
+
+    def close(self) -> None:
+        self._lib.pskplane_close(self._h)
+
+    def depth(self) -> int:
+        return int(self._lib.pskplane_depth(self._h))
+
+    def stats(self) -> BankStats:
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.pskplane_stats(self._h, out)
+        return BankStats(*[int(v) for v in out])
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pskplane_destroy(self._h)
+            self._h = None

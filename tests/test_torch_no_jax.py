@@ -1,0 +1,52 @@
+"""The port never imports jax or psk_soft_tpu: a fresh interpreter with both
+blocked in sys.modules imports every module of psk_soft_tpu_torch and runs
+one CPU engine step."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+PROGRAM = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "psk_soft_tpu"):
+    sys.modules[name] = None          # any import of them raises
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import psk_soft_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(psk_soft_tpu_torch.__path__,
+                                               "psk_soft_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from psk_soft_tpu_torch.config import DemodConfig
+from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
+cfg = DemodConfig(sps=4, num_avg=10, constellation_size=4, phase_avg=12)
+eng = FullKernelBatchEngine(cfg, 128, block_symbols=64, device="cpu")
+rng = np.random.default_rng(0)
+for _ in range(2):
+    x = rng.standard_normal((64 * 4, 128)).astype(np.float32)
+    eng.push_planes(x, x[::-1].copy())
+    pkts = eng.step_packets()
+assert eng.steady and pkts["softDecision_dataFloat_out"].data.shape == (128, 64)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("OK", len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", PROGRAM], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    line = res.stdout.strip().splitlines()[-1]
+    assert line.startswith("OK") and int(line.split()[1]) >= 16, line
