@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. toolchain: the card's name and power limit, torch / CUDA / nvcc
      versions, whether triton imports;
-  2. build kernel B1 (csrc/demod_full.cu) with nvcc for sm_90a;
+  2. build kernel B1 (csrc/demod_full.cu) and kernels B2, B3, B4
+     (csrc/viterbi.cu) with nvcc for sm_90a, one nvcc per source, started
+     together;
   3. kernel against its plain-PyTorch version on the card at 1024 channels
      x 512 symbols, sps 8, num_avg 100, phase_avg 50: M in {2, 4, 8, 16},
      differential, debug ports off, int8 soft, and a two-block carry;
@@ -17,7 +19,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card -> step_packets, 1 warm-up block + 10 steady blocks + a
      flush, against the same engine on the CPU (the plain version);
   5. per-block times with CUDA events (kernel and plain version on the
-     same CUDA tensors) and the engine's end-to-end samples/s.
+     same CUDA tensors) and the engine's end-to-end samples/s;
+  6. the Viterbi kernels against their plain versions on the card, bits
+     and decisions equal, final metrics within 1e-5: B2 at the chain shape
+     (K7, n 2, 64 steps, 6144 rows) terminated and not, noisy and hard
+     +/-1 LLRs, and K3, K9, punctured 2/3 and 3/4; B3 + B4 on long
+     trellises (K7 512 rows x 4096 steps, K9 256 x 1024); the fused path
+     against the two-phase path (t_tile given) at the chain shape;
+  7. ChainEngine end to end at 1024 channels x 512 symbols (QPSK, UW 32,
+     payload 64, K7, CRC-16, 4 frames per block per channel on an
+     unaligned cadence): 1 warm-up block, 10 steady blocks and a flush on
+     the card, every planted frame after the warm-up decoded exactly once
+     with exact bits and the CRC green, the frame list equal to the same
+     engine's on the CPU, B1 and B2 launched at least once per block;
+  8. times: B2 per block and B3, B4 at the long shape against their plain
+     versions (CUDA events), the chain engine end to end at pipeline depth
+     0 and 1 with a host-clock breakdown, one torch.profiler pass.
 
 The last two lines of standard output are a JSON object describing each
 kernel, then ``{"ok": true, "device": {...}}``.
@@ -29,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,6 +55,9 @@ WARM = 256                    # warm-up symbols before the kernel checks
 STEADY_BLOCKS = 10            # engine blocks past the hand-off
 PHASE_TOL, SOFT_TOL = 2e-3, 3e-3
 QPSK_TOL = 0.05               # engine soft decisions vs the QPSK points
+PM_TOL = 1e-5                 # B3 final path metrics vs the plain version
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 
 
 def channels(num_symbols: int, m: int = 4, diff: bool = False,
@@ -68,7 +89,8 @@ def wrap_diff(a, b, period: float) -> float:
     return float((d - period * (d / period).round()).abs().max())
 
 
-def profile_engine(feed, need: int, card: str, blocks: int = 5) -> None:
+def profile_engine(feed, card: str, what: str = "engine, depth 0",
+                   blocks: int = 5) -> None:
     """torch.profiler over a few engine blocks: device busy time by
     operation and the device's idle share of the wall time.  The profiler's
     table goes to standard error."""
@@ -96,13 +118,336 @@ def profile_engine(feed, need: int, card: str, blocks: int = 5) -> None:
     top = sorted(dev_rows, key=dev_us, reverse=True)[:6]
     print(f"{card}: {blocks} engine blocks, wall {wall:.4f} s\n"
           f"{ka.table(row_limit=30)}", file=sys.stderr)
-    log(json.dumps({"phase": "profile", "what": "engine, depth 0",
+    log(json.dumps({"phase": "profile", "what": what,
                     "blocks": blocks, "wall_ms_per_block": wall * 1e3
                     / blocks, "device_busy_ms_per_block": busy / blocks,
                     "device_idle_share": 1.0 - busy / (wall * 1e3),
                     "top_device_ms_per_block": {
                         e.key: dev_us(e) / 1e3 / blocks for e in top},
                     "card": card}))
+
+
+def viterbi_llrs(code, rows: int, n_info: int, hard: bool,
+                 seed: int) -> np.ndarray:
+    """(rows, L) float32 LLRs of random coded frames (terminated): +/-1
+    with Gaussian noise of std 0.8, or hard +/-1 with 5% of the code bits
+    flipped, which makes ties everywhere."""
+    from psk_soft_tpu_torch.ops import fec
+
+    rng = np.random.default_rng(seed)
+    info = rng.integers(0, 2, (rows, n_info)).astype(np.int8)
+    bits = fec.conv_encode(code, info).numpy()
+    if hard:
+        bits = bits ^ (rng.random(bits.shape) < 0.05)
+        return (1.0 - 2.0 * bits).astype(np.float32)
+    return ((1.0 - 2.0 * bits)
+            + 0.8 * rng.standard_normal(bits.shape)).astype(np.float32)
+
+
+def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
+    """Phases 6 and 8a: kernels B2, B3 and B4 against their plain versions
+    on the card, and their times.  Returns, per kernel, the numbers of the
+    kernels line."""
+    from psk_soft_tpu_torch.ops import fec
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel as vk
+
+    def planes(code, llr):
+        return vk.decode_planes(code, torch.from_numpy(llr).to(dev))
+
+    # --- phase 6a: B2 at the chain shape (64 steps, 6144 rows) and others.
+    rows = C * (S // 96 + 1)                  # ChainEngine's capacity k = 6
+    p23 = fec.ConvCode(7, (0o171, 0o133), fec.PUNCTURE_2_3)
+    p34 = fec.ConvCode(7, (0o171, 0o133), fec.PUNCTURE_3_4)
+    cases = [("K7", fec.CODE_K7, 58, False, True),
+             ("K7 terminate=False", fec.CODE_K7, 58, False, False),
+             ("K7 hard +/-1", fec.CODE_K7, 58, True, True),
+             ("K3", fec.CODE_K3, 62, False, True),
+             ("K9", fec.CODE_K9, 56, False, True),
+             ("K7 punctured 2/3", p23, 58, False, True),
+             ("K7 punctured 3/4", p34, 60, False, True)]
+    chain_args = None
+    for i, (label, code, n_info, hard, terminate) in enumerate(cases):
+        llr_t, pm0, exp, t, _ = planes(code, viterbi_llrs(code, rows, n_info,
+                                                          hard, 60 + i))
+        kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=t,
+                  terminate=terminate)
+        got = vk.viterbi_fused(llr_t, pm0, exp, **kw)
+        ref = vk.viterbi_fused_ref(llr_t, pm0, exp, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B2 {label}: bits differ at "
+                                 f"{int((got != ref).sum())} of "
+                                 f"{got.numel()}")
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2",
+                        "case": label, "rows": rows, "steps": t,
+                        "bits_equal": True}))
+        if chain_args is None:
+            chain_args = (llr_t, pm0, exp, kw)
+
+    # --- phase 6b: fused against two-phase at the chain shape, and both
+    # against the plain decoder on the CPU.
+    llr = viterbi_llrs(fec.CODE_K7, rows, 58, False, 70)
+    on_card = torch.from_numpy(llr).to(dev)
+    fused = vk.viterbi_decode_kernel(fec.CODE_K7, on_card)
+    two_phase = vk.viterbi_decode_kernel(fec.CODE_K7, on_card, t_tile=16)
+    cpu = fec.viterbi_decode(fec.CODE_K7, torch.from_numpy(llr))
+    if not (torch.equal(fused, two_phase) and torch.equal(fused.cpu(), cpu)):
+        raise AssertionError("fused and two-phase decodes differ")
+    log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2 vs B3+B4",
+                    "rows": rows, "steps": 64, "bits_equal": True,
+                    "equal_to_cpu_decoder": True}))
+
+    # --- phase 6c: B3 + B4 on long trellises.
+    pm_err = 0.0
+    long_args = None
+    for code, n_rows, steps in ((fec.CODE_K7, 512, 4096),
+                                (fec.CODE_K9, 256, 1024)):
+        llr_t, pm0, exp, t, _ = planes(code, viterbi_llrs(
+            code, n_rows, steps - (code.k - 1), False, 80 + code.k))
+        kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=t)
+        dec, pm = vk.viterbi_acs(llr_t, pm0, exp, **kw)
+        dec_r, pm_r = vk.viterbi_acs_ref(llr_t, pm0, exp, **kw)
+        start = torch.argmax(pm, dim=0).to(torch.int32)[None]
+        tb = dict(k=code.k, s_count=code.states, t_actual=t)
+        bits = vk.viterbi_traceback(dec, start, **tb)
+        bits_r = vk.viterbi_traceback_ref(dec, start, **tb)
+        torch.cuda.synchronize()
+        err = float((pm - pm_r).abs().max())
+        if not torch.equal(dec, dec_r) or err > PM_TOL:
+            raise AssertionError(f"B3 K{code.k}: decisions differ at "
+                                 f"{int((dec != dec_r).sum())}, metrics "
+                                 f"{err}")
+        if not torch.equal(bits, bits_r):
+            raise AssertionError(f"B4 K{code.k}: bits differ at "
+                                 f"{int((bits != bits_r).sum())}")
+        pm_err = max(pm_err, err)
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B3+B4",
+                        "K": code.k, "rows": n_rows, "steps": t,
+                        "decisions_equal": True, "bits_equal": True,
+                        "metrics_max_abs_err": err}))
+        if long_args is None:
+            long_args = (llr_t, pm0, exp, kw, dec, start, tb)
+        del dec, dec_r, pm_r, bits, bits_r
+
+    # --- phase 8a: times (plain, kernel, kernel, plain within the call).
+    def timed(kernel, plain, iters_plain):
+        p1 = event_ms(plain, [()], iters=iters_plain)
+        k1 = event_ms(kernel, [()])
+        k2 = event_ms(kernel, [()])
+        p2 = event_ms(plain, [()], iters=iters_plain)
+        return [k1, k2], [p1, p2]
+
+    out = {}
+    llr_t, pm0, exp, kw = chain_args
+    k_ms, p_ms = timed(lambda: vk.viterbi_fused(llr_t, pm0, exp, **kw),
+                       lambda: vk.viterbi_fused_ref(llr_t, pm0, exp, **kw),
+                       10)
+    t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
+    acs_ops = t * b * s_count * (4 * n + 3)   # per (step, row, state)
+    out["viterbi_fused"] = dict(
+        ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=0.0, ops=acs_ops,
+        bytes=(llr_t.nbytes + pm0.nbytes + exp.nbytes + t * b))
+    log(json.dumps({"phase": "timing", "what": "viterbi_fused (B2) per "
+                    "chain block", "rows": b, "steps": t, "K": kw["k"],
+                    "kernel_ms": k_ms, "plain_ms": p_ms,
+                    "kernel_infobits_per_s": b * (t - kw["k"] + 1)
+                    / (min(k_ms) * 1e-3), "card": card}))
+
+    llr_t, pm0, exp, kw, dec, start, tb = long_args
+    t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
+    k_ms, p_ms = timed(lambda: vk.viterbi_acs(llr_t, pm0, exp, **kw),
+                       lambda: vk.viterbi_acs_ref(llr_t, pm0, exp, **kw), 2)
+    out["viterbi_acs"] = dict(
+        ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=pm_err,
+        ops=t * b * s_count * (4 * n + 3),
+        bytes=(llr_t.nbytes + 2 * pm0.nbytes + exp.nbytes + t * s_count * b))
+    log(json.dumps({"phase": "timing", "what": "viterbi_acs (B3)",
+                    "rows": b, "steps": t, "K": kw["k"], "kernel_ms": k_ms,
+                    "plain_ms": p_ms, "card": card}))
+    k_ms, p_ms = timed(lambda: vk.viterbi_traceback(dec, start, **tb),
+                       lambda: vk.viterbi_traceback_ref(dec, start, **tb), 2)
+    # The walk reads one decision byte per (step, row): what this data
+    # needs, not the whole plane.
+    out["viterbi_traceback"] = dict(
+        ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=0.0, ops=4 * t * b,
+        bytes=t * b + start.nbytes + t * b)
+    log(json.dumps({"phase": "timing", "what": "viterbi_traceback (B4)",
+                    "rows": b, "steps": t, "K": kw["k"], "kernel_ms": k_ms,
+                    "plain_ms": p_ms, "card": card}))
+    return out
+
+
+def plant_chain_stream(fmt, code, crc, rng):
+    """bench.py's _plant_unaligned_frames with the port's own encoder, CRC
+    and Gray mapping: K7 + CRC-16 frames on the cadence max(sep, 104) + 1
+    over the S-periodic stream, planted with wraparound.  Returns (starts,
+    infos (C, k, n_msg), x (C, S*SPS) complex64, n_info)."""
+    from psk_soft_tpu_torch.ops import crc as crc_ops, fec, slicers
+
+    n_info = fec.info_bits_for(code, fmt.payload * 2)
+    cadence = max(fmt.separation, 104) + 1
+    k_frames = S // cadence
+    starts = [(17 + j * cadence) % S for j in range(k_frames)]
+    infos = rng.integers(0, 2, (C, k_frames, n_info - crc.degree)).astype(
+        np.int8)
+    coded = fec.conv_encode(code, crc_ops.append_crc(crc, infos)).numpy()
+    labels = slicers.bit_labels(4, "gray").astype(np.int64)
+    lut = np.zeros(4, np.int64)
+    lut[labels[:, 0] + 2 * labels[:, 1]] = np.arange(4)
+    pay = lut[coded[..., 0::2] + 2 * coded[..., 1::2]]   # (C, k, payload)
+    idx = rng.integers(0, 4, (C, S))
+    uw = np.asarray(fmt.uw, np.int64)
+    for j, s0 in enumerate(starts):
+        cols = (s0 + np.arange(fmt.frame_len)) % S      # wraparound plant
+        idx[:, cols[:fmt.uw_len]] = uw[None, :]
+        idx[:, cols[fmt.uw_len:]] = pay[:, j]
+    x = np.repeat(np.exp(1j * (2 * np.pi * idx / 4 + 0.4)), SPS,
+                  axis=1).astype(np.complex64)
+    x += (0.01 * (rng.standard_normal(x.shape)
+                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    return starts, infos, x, n_info
+
+
+def chain_phases(torch, dev, card: str, profile) -> dict:
+    """Phases 7 and 8b: ChainEngine end to end on the card against the
+    CPU, then its times.  Returns the kernel launch counts of the main
+    path's run."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime.chain_engine import ChainEngine
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rng = np.random.default_rng(12)
+    fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 32)), payload=64, m=4,
+                      threshold=0.7)
+    starts, infos, x, n_info = plant_chain_stream(fmt, CODE_K7, CRC16_CCITT,
+                                                  rng)
+    re = np.ascontiguousarray(x.real.T)           # one S-periodic block
+    im = np.ascontiguousarray(x.imag.T)
+    del x
+    need = S * SPS
+    n_blocks = 1 + STEADY_BLOCKS
+    wrappers = {"demod_full_tm": demod_kernel.demod_full_tm,
+                "viterbi_fused": viterbi_kernel.viterbi_fused,
+                "viterbi_acs": viterbi_kernel.viterbi_acs,
+                "viterbi_traceback": viterbi_kernel.viterbi_traceback}
+
+    def engine(device, depth=0):
+        return ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT,
+                           block_symbols=S, pipeline_depth=depth,
+                           device=device)
+
+    def drive(eng):
+        for _ in range(n_blocks):
+            eng.push_planes(re, im)
+            eng.step()
+        eng.flush()
+        torch.cuda.synchronize()
+        return eng.pop_frames()
+
+    # --- phase 7: the main path on the card, counts read around it ---
+    gpu = engine(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    frames = drive(gpu)
+    gpu_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if min(launches["demod_full_tm"], launches["viterbi_fused"]) \
+            < STEADY_BLOCKS:
+        raise AssertionError(f"launches {launches} for {STEADY_BLOCKS} "
+                             f"steady blocks")
+    t0 = time.perf_counter()
+    cpu_frames = drive(engine("cpu"))
+    cpu_s = time.perf_counter() - t0
+
+    a1 = NUM_AVG - 1
+    planted = {(c, b * S + s0): j for b in range(n_blocks)
+               for j, s0 in enumerate(starts) for c in range(C)}
+    # Demod rows exist for input symbols below n_blocks * S - a1; every
+    # frame after the warm-up block whose symbols all have rows must come.
+    must = {key for key in planted if key[1] >= S
+            and key[1] + fmt.frame_len <= n_blocks * S - a1}
+    keys = [(f.channel, f.start) for f in frames]
+    if len(set(keys)) != len(keys):
+        raise AssertionError("a frame was decoded twice")
+    if not must <= set(keys) <= set(planted):
+        raise AssertionError(f"{len(must - set(keys))} planted frames "
+                             f"missed, {len(set(keys) - set(planted))} "
+                             f"unplanted frames decoded")
+    for f in frames:
+        if not f.crc_ok or not np.array_equal(
+                f.info_bits, infos[f.channel, planted[(f.channel,
+                                                       f.start)]]):
+            raise AssertionError(f"frame {(f.channel, f.start)}: CRC "
+                                 f"{f.crc_ok} or info bits wrong")
+    if gpu.overflow_peaks or gpu.crc_failures:
+        raise AssertionError(f"overflow {gpu.overflow_peaks}, CRC failures "
+                             f"{gpu.crc_failures}")
+
+    def key(fr):
+        return [(f.channel, f.start, f.crc_ok, f.info_bits.tobytes())
+                for f in fr]
+
+    if key(frames) != key(cpu_frames):
+        raise AssertionError("frame lists differ between card and CPU")
+    log(json.dumps({"phase": "chain_engine", "channels": C, "symbols": S,
+                    "blocks": n_blocks, "frames": len(frames),
+                    "frames_required": len(must),
+                    "frames_per_block_per_channel": len(starts),
+                    "launches": launches, "warmup_symbols":
+                    gpu.warmup_symbols, "card_s": gpu_s, "cpu_s": cpu_s,
+                    "equal_to_cpu": True}))
+
+    # --- phase 8b: the chain engine's times, depth 0 and 1 ---
+    for depth in (0, 1):
+        eng = engine(dev, depth)
+        acc = dict(push=0.0, upload=0.0, chain_enqueue=0.0,
+                   commit_fetch=0.0)
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                acc[name] += time.perf_counter() - t
+                return r
+            return run
+
+        eng._upload = timed("upload", eng._upload)
+        eng._step = timed("chain_enqueue", eng._step)
+        eng._commit = timed("commit_fetch", eng._commit)
+
+        def feed(_b):
+            t = time.perf_counter()
+            eng.push_planes(re, im)
+            acc["push"] += time.perf_counter() - t
+            return eng.step()
+
+        for b in range(3):                  # warm-up + hand-off + 1 steady
+            feed(b)
+        torch.cuda.synchronize()
+        acc = dict.fromkeys(acc, 0.0)
+        n_timed, decoded = 20, 0
+        t0 = time.perf_counter()
+        for b in range(n_timed):
+            decoded += len(feed(3 + b))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(json.dumps({"phase": "timing", "what": "chain engine end to end",
+                        "pipeline_depth": depth, "blocks": n_timed,
+                        "frames": decoded, "seconds": dt,
+                        "infobits_per_s": decoded * n_info / dt,
+                        "samples_per_s": n_timed * need * C / dt,
+                        "host_ms_per_block": {k: v * 1e3 / n_timed
+                                              for k, v in acc.items()},
+                        "card": card}))
+        if depth == 0:
+            profile(feed, card, "chain engine, depth 0")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -115,6 +460,7 @@ def main() -> int:
     from psk_soft_tpu_torch.config import DemodConfig
     from psk_soft_tpu_torch.models import blockpsk, full
     from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel
     from psk_soft_tpu_torch.ops.cuda.demod_kernel import (demod_full_tm,
                                                           demod_full_tm_ref)
     from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
@@ -147,13 +493,17 @@ def main() -> int:
                     "capability": list(torch.cuda.get_device_capability(0)),
                     "count": torch.cuda.device_count()}))
 
-    # --- phase 2: build ---
+    # --- phase 2: build, one nvcc per source, all started together ---
     t0 = time.perf_counter()
-    _, build_log = demod_kernel.load_library()
+    with ThreadPoolExecutor(2) as pool:
+        builds = {src: pool.submit(mod.load_library) for src, mod in (
+            ("demod_full.cu", demod_kernel), ("viterbi.cu", viterbi_kernel))}
+        build_logs = {src: f.result()[1] for src, f in builds.items()}
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    for src, build_log in build_logs.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {src}: {line.strip()}")
 
     # --- phase 3: kernel vs plain version, every mode, 1024 x 512 ---
     modes = [dict(m=4, diff=False), dict(m=2, diff=False),
@@ -416,20 +766,51 @@ def main() -> int:
                                               for k, v in acc.items()},
                         "card": card}))
         if depth == 0:
-            profile_engine(feed, need, card)
+            profile_engine(feed, card)
         bank.close()
 
+    del blocks
+    vit = viterbi_phases(torch, dev, card, event_ms)
+    chain = chain_phases(torch, dev, card, profile_engine)
+
+    # --- the kernels line ---
     t = timings[False]
-    print(json.dumps({"kernels": [{
-        "name": "demod_full_tm",
-        "route": "cuda",
-        "source": "psk_soft_tpu_torch/csrc/demod_full.cu",
-        "replaces": "psk_soft_tpu/ops/pallas/demod_kernel.py:546",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": min(t["kernel_ms"]),
-        "plain_ms": min(t["plain_ms"]),
-    }]}))
+    b1_in = (2 * (NUM_AVG - 1) * SPS * C + 2 * need * C
+             + demod_kernel.state_rows(PHASE_AVG) * C) * 4
+    b1_out = (2 * S * C * 4 + S * C
+              + demod_kernel.state_rows(PHASE_AVG) * C * 4)
+    # Per input sample its energy (3 operations); per symbol the M-th power,
+    # three atan2/sincos, the 9-tap trend and the phase_avg-tap FIR (about
+    # 2 * phase_avg + 40 operations).
+    b1_ops = 3 * need * C + S * C * (2 * PHASE_AVG + 40)
+    rows = [dict(name="demod_full_tm", source="demod_full.cu",
+                 replaces="psk_soft_tpu/ops/pallas/demod_kernel.py:546",
+                 launches=chain["launches"]["demod_full_tm"],
+                 max_abs_err=max_err, ms=min(t["kernel_ms"]),
+                 plain_ms=min(t["plain_ms"]), bytes=b1_in + b1_out,
+                 ops=b1_ops)]
+    for name, line in (("viterbi_fused", 312), ("viterbi_acs", 349),
+                       ("viterbi_traceback", 391)):
+        v = vit[name]
+        rows.append(dict(
+            name=name, source="viterbi.cu",
+            replaces=f"psk_soft_tpu/ops/pallas/viterbi_kernel.py:{line}",
+            launches=chain["launches"][name], max_abs_err=v["max_abs_err"],
+            ms=v["ms"], plain_ms=v["plain_ms"], bytes=v["bytes"],
+            ops=v["ops"]))
+    kernels = []
+    for r in rows:
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": "psk_soft_tpu_torch/csrc/" + r["source"],
+            "replaces": r["replaces"], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 """Symbol -> bit slicers for BPSK / QPSK / 8-PSK (+ 16/32-PSK extension)
-(port of ``psk_soft_tpu/ops/slicers.py:25-115``).
+(port of ``psk_soft_tpu/ops/slicers.py:25-115, 158-196``).
 
 The documented sign-based mapping of ``psk_soft.scd.xml:42-63``, bits
 LSB-first.  Each slicer returns an ``(..., 3)`` int8 tensor (``log2 M`` wide
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -65,3 +66,36 @@ def slice_bits(constellation_size: int, soft: torch.Tensor) -> torch.Tensor:
     if constellation_size in (8, 16, 32):
         return slice_mpsk(constellation_size, soft)
     raise ValueError(f"unsupported constellation size {constellation_size}")
+
+
+def bit_labels(m: int, labeling: str = "scd") -> np.ndarray:
+    """(m, log2 m) int8 bit labels of symbol index k, LSB-first (port of
+    ``psk_soft_tpu/ops/slicers.py:158``).
+
+    labeling="scd": the documented port mapping above, applied to the
+    ideal points :func:`..framesync.psk_points`.  labeling="gray":
+    binary-reflected Gray code (label = k ^ (k >> 1)), the coded-
+    transmission mapping.  A host numpy table.
+    """
+    if m not in (2, 4, 8, 16, 32):
+        raise ValueError(f"unsupported constellation size {m}")
+    nb = max(int(np.log2(m)), 1)
+    k = np.arange(m)
+    if labeling == "gray":
+        code = k ^ (k >> 1)
+    elif labeling == "scd":
+        from .framesync import psk_points
+        pts = psk_points(k, m)
+        if m == 2:
+            code = (pts.real < 0).astype(np.int64)
+        elif m == 4:
+            sr = (pts.real < 0).astype(np.int64)
+            si = (pts.imag < 0).astype(np.int64)
+            code = (sr ^ si) + 2 * si
+        else:
+            softsym = np.angle(pts) * (m / (2.0 * np.pi))
+            softsym = np.where(softsym < -0.5, softsym + m, softsym)
+            code = np.floor(softsym + 0.5).astype(np.int64) & (m - 1)
+    else:
+        raise ValueError(f"unknown labeling {labeling!r}")
+    return ((code[:, None] >> np.arange(nb)) & 1).astype(np.int8)

@@ -33,7 +33,8 @@ def _later(what: str, step: str) -> ValueError:
 class FullKernelBatchEngine(_PipelinedPackets):
     """Bank engine for the single-kernel flagship: warms up through the
     channel-major feed-forward pipeline, then hands the carry to kernel B1
-    and streams time-major blocks through it, all on ``device``."""
+    and streams time-major blocks through it, all on ``device`` ("cuda"
+    unless the caller asks for the CPU, which runs the plain version)."""
 
     def __init__(self, cfg: DemodConfig, channels: int,
                  block_symbols: int = 512, pipeline_depth: int = 0,
@@ -41,7 +42,7 @@ class FullKernelBatchEngine(_PipelinedPackets):
                  guard_nonfinite: bool = False,
                  debug_ports: bool = True, data_ports: bool = True,
                  soft_i8: bool = False, soft_i8_scale: float = 100.0, *,
-                 device):
+                 device="cuda"):
         if channels % 128:
             raise ValueError("channels must be a multiple of 128")
         if ingest_scale is not None:

@@ -5,7 +5,8 @@ Each library is compiled from its source in the checkout into
 hash of the source and the compile command, so an edited source or flag
 rebuilds and a stale library is never loaded.  The compiler writes to a
 temporary name that is renamed into place, so concurrent builds (test
-workers) never load a half-written file.
+workers) never load a half-written file.  Builds of different libraries in
+one process run in parallel (one lock per library name).
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "psk_soft_tpu_torch"
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock_for(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def build_shared(source: Path, name: str, compiler: list[str],
@@ -30,7 +37,7 @@ def build_shared(source: Path, name: str, compiler: list[str],
     key = hashlib.sha256(source.read_bytes()
                          + " ".join(compiler + flags).encode()).hexdigest()
     out = BUILD_DIR / f"{name}-{key[:16]}.so"
-    with _lock:
+    with _lock_for(name):
         if out.exists():
             return out, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

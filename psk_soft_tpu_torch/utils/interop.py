@@ -1,9 +1,10 @@
 """State carried between the JAX package and the port.
 
 The demod has no learned weights; what crosses over is configuration and
-carries.  Everything goes through numpy, so neither package imports the
-other: the tests read the JAX NamedTuples into numpy dicts and hand them
-here.  complex64 stays complex64.
+carries.  Everything goes through numpy and plain dataclass fields, so
+neither package imports the other: the tests read the JAX NamedTuples into
+numpy dicts (and the JAX dataclasses through ``dataclasses.asdict``) and
+hand them here.  complex64 stays complex64.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ import torch
 
 from ..config import DemodConfig
 from ..models.blockpsk import FFState
+from ..models.chain import ChainState, SeamTailState
 from ..models.full import FullState
+from ..ops.crc import CrcSpec
+from ..ops.fec import ConvCode
+from ..ops.framesync import FrameFormat
 
 
 def config_from_jax_dict(d: Mapping) -> DemodConfig:
@@ -52,3 +57,27 @@ def ff_state_to_numpy(state: FFState) -> dict:
 
 def full_state_to_numpy(state: FullState) -> dict:
     return _to_numpy(state)
+
+
+def frame_format_from_jax_dict(d: Mapping) -> FrameFormat:
+    """FrameFormat from ``dataclasses.asdict`` of the JAX FrameFormat."""
+    return FrameFormat(**d)
+
+
+def conv_code_from_jax_dict(d: Mapping) -> ConvCode:
+    """ConvCode from ``dataclasses.asdict`` of the JAX ConvCode."""
+    return ConvCode(**d)
+
+
+def crc_spec_from_jax_dict(d: Mapping) -> CrcSpec:
+    """CrcSpec from ``dataclasses.asdict`` of the JAX CrcSpec."""
+    return CrcSpec(**d)
+
+
+def chain_state_from_numpy(demod: Mapping, tail: Mapping,
+                           device) -> ChainState:
+    """The seam chain carry on ``device``: ``demod`` maps the FullState
+    fields (win_re, win_im, planes), ``tail`` the SeamTailState fields
+    (tail_re, tail_im), e.g. the JAX ChainState's fields as numpy."""
+    return ChainState(full_state_from_numpy(demod, device),
+                      _from_numpy(SeamTailState, tail, device))

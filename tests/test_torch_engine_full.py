@@ -9,6 +9,8 @@ tests/test_full_kernel.py).  With 256-symbol blocks the Pallas kernel runs
 one time tile per block, so both re-wrap the phase at the same place.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -238,3 +240,6 @@ def test_engine_rejects_later_methods_and_bad_input():
                         np.zeros((64, 3), np.float32))
     with pytest.raises(ValueError, match="multiple of 128"):
         FullKernelBatchEngine(DemodConfig(**KW), 100, device="cpu")
+    # The entry point runs on the card unless the caller asks for the CPU.
+    params = inspect.signature(FullKernelBatchEngine).parameters
+    assert params["device"].default == "cuda"

@@ -1,6 +1,6 @@
 """The port never imports jax or psk_soft_tpu: a fresh interpreter with both
 blocked in sys.modules imports every module of psk_soft_tpu_torch and runs
-one CPU engine step."""
+one CPU engine step and a CPU ChainEngine warm-up and steady step."""
 
 import os
 import subprocess
@@ -35,6 +35,18 @@ for _ in range(2):
     eng.push_planes(x, x[::-1].copy())
     pkts = eng.step_packets()
 assert eng.steady and pkts["softDecision_dataFloat_out"].data.shape == (128, 64)
+from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+from psk_soft_tpu_torch.ops.fec import CODE_K7
+from psk_soft_tpu_torch.ops.framesync import FrameFormat
+from psk_soft_tpu_torch.runtime.chain_engine import ChainEngine
+fmt = FrameFormat(uw=(0, 1, 2, 3) * 4, payload=32, m=4)
+chain = ChainEngine(cfg, 128, fmt, CODE_K7, CRC16_CCITT, block_symbols=64,
+                    device="cpu")
+for _ in range(2):
+    x = rng.standard_normal((64 * 4, 128)).astype(np.float32)
+    chain.push_planes(x, x[::-1].copy())
+    assert isinstance(chain.step(), list)
+assert chain.chain_state is not None and chain.warmup_symbols == 64
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
@@ -49,4 +61,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     line = res.stdout.strip().splitlines()[-1]
-    assert line.startswith("OK") and int(line.split()[1]) >= 16, line
+    assert line.startswith("OK") and int(line.split()[1]) >= 29, line
