@@ -34,7 +34,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      engine's on the CPU, B1 and B2 launched at least once per block;
   8. times: B2 per block and B3, B4 at the long shape against their plain
      versions (CUDA events), the chain engine end to end at pipeline depth
-     0 and 1 with a host-clock breakdown, one torch.profiler pass.
+     0 and 1 with a host-clock breakdown, one torch.profiler pass;
+  9. kernel B5 (csrc/frontend.cu, built with the others in phase 2)
+     against its plain version at 1024 x 512: equal on planted symbols;
+     on pure noise a differing sample index only at a near tie (top two
+     window sums within NEAR_TIE_REL), counted; its times;
+ 10. the fused pipeline (models/fused: B5 + the symbol backend), 1 flexible
+     + 10 assume_steady blocks, against blockpsk on the same card (bits
+     and sample index equal, soft 2e-4, phase 1e-3), and its samples/s
+     with the planes resident on the card;
+ 11. FullKernelBatchEngine's lifecycle at full width: configure mid-stream
+     (num_avg 100 -> 80, phase_avg 50 -> 40) against a CPU run of the
+     first 128 channels; save_state -> load_state -> restore_full_state
+     bit-equal to the uninterrupted run; guard_nonfinite with NaN and inf
+     planted: channel_resyncs equal to the CPU run's, healthy channels
+     bit-equal to an unpoisoned run;
+ 12. ChainEngine(acquire_cfo=True) with offsets 0.018 + 0.006*c/C
+     cycles/sample: every planted frame after the warm-up decoded once
+     with exact bits, the estimates within 1e-4, the plain engine under
+     half;
+ 13. ops/fec.viterbi_decode on a 2048-step trellis (B3 then B4), bits
+     equal to the plain decoder on the CPU.
+Phases run in the order 1-5, 9-11, 6-8, 12, 13.  Each path's launch
+counts are set to 0 just before it runs and read just after; the kernels
+line takes B1's and B2's from phase 7, B3's and B4's from phase 13 and
+B5's from phase 10.
 
 The last two lines of standard output are a JSON object describing each
 kernel, then ``{"ok": true, "device": {...}}``.
@@ -56,6 +80,10 @@ STEADY_BLOCKS = 10            # engine blocks past the hand-off
 PHASE_TOL, SOFT_TOL = 2e-3, 3e-3
 QPSK_TOL = 0.05               # engine soft decisions vs the QPSK points
 PM_TOL = 1e-5                 # B3 final path metrics vs the plain version
+NEAR_TIE_REL = 1e-5           # B5 on noise: an index may differ only here
+FUSED_SOFT_TOL, FUSED_PHASE_TOL = 2e-4, 1e-3   # tests/test_fused.py:67-75
+CFO_TOL = 1e-4                # acquire_cfo estimates vs the planted offsets
+CPU_C = 128                   # channels of the CPU comparison runs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 
@@ -122,6 +150,8 @@ def profile_engine(feed, card: str, what: str = "engine, depth 0",
                     "blocks": blocks, "wall_ms_per_block": wall * 1e3
                     / blocks, "device_busy_ms_per_block": busy / blocks,
                     "device_idle_share": 1.0 - busy / (wall * 1e3),
+                    "device_ops_per_block": sum(e.count for e in dev_rows)
+                    / blocks,
                     "top_device_ms_per_block": {
                         e.key: dev_us(e) / 1e3 / blocks for e in top},
                     "card": card}))
@@ -450,6 +480,427 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
     return {"launches": launches}
 
 
+def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
+    """Phase 9: kernel B5 against its plain version at 1024 x 512 (sps 8,
+    num_avg 100): equal on planted symbols plus noise; on pure noise a
+    differing sample index is allowed only at a near tie of the plain
+    version's top two window sums.  Then its times on ``blocks``.
+    Returns the numbers of the kernels line."""
+    from psk_soft_tpu_torch.ops import timing
+    from psk_soft_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    kw = dict(sps=SPS, num_avg=NUM_AVG)
+    keep = (NUM_AVG - 1) * SPS
+    rows = (S + NUM_AVG - 1) * SPS
+
+    def split(re, im):
+        return re[:keep], im[:keep], re[keep:], im[keep:]
+
+    sig = torch.from_numpy(np.ascontiguousarray(
+        channels(S + NUM_AVG - 1).T)).to(dev)            # (rows, C)
+    args = split(sig.real.contiguous(), sig.imag.contiguous())
+    got = fk.timing_frontend_tm(*args, **kw)
+    ref = fk.timing_frontend_tm_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"B5 on planted symbols: sample index differs "
+                             f"at {int((got[2] != ref[2]).sum())}")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    re = torch.randn((rows, C), generator=gen, device=dev)
+    im = torch.randn((rows, C), generator=gen, device=dev)
+    args = split(re, im)
+    got = fk.timing_frontend_tm(*args, **kw)
+    ref = fk.timing_frontend_tm_ref(*args, **kw)
+    e = (re * re + im * im).reshape(S + NUM_AVG - 1, SPS, C).permute(2, 0, 1)
+    top2 = timing.windowed_bin_sums(e, NUM_AVG).topk(2, dim=-1).values
+    gap = ((top2[..., 0] - top2[..., 1]) / top2[..., 0]).T       # (S, C)
+    torch.cuda.synchronize()
+    differ = got[2] != ref[2]
+    n_differ = int(differ.sum())
+    widest = float(gap[differ].max()) if n_differ else 0.0
+    same = ~differ
+    if widest >= NEAR_TIE_REL or not (
+            torch.equal(got[0][same], ref[0][same])
+            and torch.equal(got[1][same], ref[1][same])):
+        raise AssertionError(f"B5 on noise: {n_differ} indices differ, "
+                             f"widest gap {widest} (near-tie bound "
+                             f"{NEAR_TIE_REL})")
+    log(json.dumps({"phase": "frontend_vs_plain", "kernel": "B5",
+                    "channels": C, "symbols": S, "sps": SPS,
+                    "num_avg": NUM_AVG, "planted_equal": True,
+                    "noise_index_differ": n_differ,
+                    "noise_outputs": S * C,
+                    "noise_widest_relative_gap": widest,
+                    "near_tie_bound": NEAR_TIE_REL}))
+    del sig, re, im, e, top2, gap
+
+    targs = [(p[0][-keep:], p[1][-keep:], c[0], c[1])
+             for p, c in zip(blocks[-1:] + blocks[:-1], blocks)]
+    k_fn = lambda *a: fk.timing_frontend_tm(*a, **kw)       # noqa: E731
+    r_fn = lambda *a: fk.timing_frontend_tm_ref(*a, **kw)   # noqa: E731
+    p1 = event_ms(r_fn, targs)
+    k1 = event_ms(k_fn, targs)
+    k2 = event_ms(k_fn, targs)
+    p2 = event_ms(r_fn, targs)
+    log(json.dumps({"phase": "timing", "what": "timing_frontend_tm (B5) "
+                    "block", "channels": C, "symbols": S,
+                    "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                    "tile": fk.pick_tile(C, S, SPS), "card": card}))
+    # Per input sample its energy (3 operations); per (symbol, bin) the
+    # window slide (2) and the first-max compare (1).
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), max_abs_err=err,
+                bytes=2 * 4 * rows * C + 3 * 4 * S * C,
+                ops=3 * rows * C + 3 * S * SPS * C)
+
+
+def fused_phase(torch, dev, card: str, frames, profile) -> int:
+    """Phase 10: the fused pipeline (B5 + the symbol backend) on the card,
+    1 flexible + 10 assume_steady blocks, against the port's blockpsk
+    feed-forward pipeline on the same card; then its input samples/s with
+    the planes resident on the card.  Returns B5's launches in the run."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models import blockpsk
+    from psk_soft_tpu_torch.models.fused import (fused_init,
+                                                 make_fused_demod_fn)
+    from psk_soft_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    need = S * SPS
+    flex = make_fused_demod_fn(cfg)
+    steady = make_fused_demod_fn(cfg, assume_steady=True)
+
+    def planes(b):
+        x = torch.from_numpy(frames[b * need:(b + 1) * need]).to(dev)
+        return x.real.contiguous(), x.imag.contiguous()
+
+    fk.timing_frontend_tm.launches = 0
+    st = fused_init(cfg, C, dev)
+    outs = []
+    for b in range(1 + STEADY_BLOCKS):
+        st, out = (flex if b == 0 else steady)(st, *planes(b))
+        outs.append(out)
+    torch.cuda.synchronize()
+    launches = fk.timing_frontend_tm.launches
+    if launches != 1 + STEADY_BLOCKS:
+        raise AssertionError(f"B5 launched {launches} times for "
+                             f"{1 + STEADY_BLOCKS} blocks")
+    worst = {"soft": 0.0, "phase": 0.0}
+    ff = blockpsk.ff_init(cfg, C, dev)
+    for b, out in enumerate(outs):
+        re, im = planes(b)
+        ff, ref = blockpsk.demod_block_ff(cfg, ff,
+                                          torch.complex(re.T, im.T))
+        v = ref.valid
+        if not torch.equal(out.valid, v) or not (
+                torch.equal(out.bits[v], ref.bits[v])
+                and torch.equal(out.sample_index[v], ref.sample_index[v])):
+            raise AssertionError(f"fused block {b}: validity, bits or "
+                                 f"sample index differ from blockpsk")
+        worst["soft"] = max(worst["soft"], float(
+            (out.soft[v] - ref.soft[v]).abs().max()))
+        worst["phase"] = max(worst["phase"], float(
+            (out.phase[v] - ref.phase[v]).abs().max()))
+    if worst["soft"] > FUSED_SOFT_TOL or worst["phase"] > FUSED_PHASE_TOL:
+        raise AssertionError(f"fused vs blockpsk: {worst}")
+    del outs
+
+    re, im = planes(0)
+    iters, best = 10, float("inf")
+    for _ in range(2):
+        st, out = steady(st, re, im)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            st, out = steady(st, re, im)
+        float(out.phase[0, 0])
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    log(json.dumps({"phase": "fused", "blocks": 1 + STEADY_BLOCKS,
+                    "launches": launches, "bits_equal": True,
+                    "sample_index_equal": True,
+                    "soft_max_err": worst["soft"],
+                    "phase_max_err": worst["phase"]}))
+    log(json.dumps({"phase": "timing", "what": "fused pipeline, planes "
+                    "resident on the card", "blocks": iters,
+                    "ms_per_block": best * 1e3 / iters,
+                    "samples_per_s": C * need * iters / best,
+                    "card": card}))
+
+    def feed(_b):
+        nonlocal st
+        st, _ = steady(st, re, im)
+
+    profile(feed, card, "fused pipeline, planes resident", blocks=10)
+    return launches
+
+
+def lifecycle_phases(torch, dev, card: str, frames) -> int:
+    """Phase 11: FullKernelBatchEngine's lifecycle at full width on the
+    card: configure mid-stream against a CPU run of the first CPU_C
+    channels; save_state -> load_state -> restore_full_state against the
+    uninterrupted run; guard_nonfinite with NaN and inf planted in one
+    channel (and inf in another's warm-up block).  Returns B1's launches
+    in the configure run."""
+    import dataclasses
+    import tempfile
+
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
+    from psk_soft_tpu_torch.runtime.streams import (PORT_BITS,
+                                                    PORT_SAMPLE_INDEX, SRI)
+    from psk_soft_tpu_torch.utils.build import BUILD_DIR
+    from psk_soft_tpu_torch.utils.checkpoint import load_state, save_state
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    cfg2 = dataclasses.replace(cfg, num_avg=80, phase_avg=40)
+    need = S * SPS
+    blocks = [frames[b * need:(b + 1) * need] for b in range(8)]
+
+    def planes(blk, width=C):
+        return (np.ascontiguousarray(blk.real[:, :width]),
+                np.ascontiguousarray(blk.imag[:, :width]))
+
+    def compare(gpu_pkts, cpu_pkts, what):
+        """Card packets (first CPU_C channels) against the CPU run's."""
+        worst = 0.0
+        if len(gpu_pkts) != len(cpu_pkts):
+            raise AssertionError(f"{what}: {len(gpu_pkts)} vs "
+                                 f"{len(cpu_pkts)} packet sets")
+        for a, b in zip(gpu_pkts, cpu_pkts):
+            if set(a) != set(b):
+                raise AssertionError(f"{what}: ports differ")
+            for port in a:
+                pa, pb = a[port], b[port]
+                da = pa.data[:CPU_C] if pa.data.ndim == 2 else pa.data
+                if (pa.t, pa.eos, pa.sri) != (pb.t, pb.eos, pb.sri) \
+                        or da.shape != pb.data.shape:
+                    raise AssertionError(f"{what} {port}: metadata differs")
+                if port in (PORT_BITS, PORT_SAMPLE_INDEX):
+                    if not np.array_equal(da, pb.data):
+                        raise AssertionError(f"{what} {port}: differs")
+                elif da.size:
+                    worst = max(worst, float(np.abs(da - pb.data).max()))
+        if worst > SOFT_TOL:
+            raise AssertionError(f"{what}: soft/phase error {worst}")
+        return worst
+
+    # --- configure mid-stream: num_avg 100 -> 80, phase_avg 50 -> 40 ---
+    def run_configure(device, width):
+        eng = FullKernelBatchEngine(cfg, width, block_symbols=S,
+                                    device=device)
+        eng.set_input_sri(SRI(stream_id="life", xdelta=1e-6))
+        pkts = []
+        for b, blk in enumerate(blocks):
+            if b == 4:
+                eng.configure(cfg2)
+            eng.push_planes(*planes(blk, width))
+            p = eng.step_packets()
+            if p is not None:
+                pkts.append(p)
+        pkts.append(eng.flush_packets())
+        return pkts, eng
+
+    demod_kernel.demod_full_tm.launches = 0
+    gpu_pkts, gpu = run_configure(dev, C)
+    torch.cuda.synchronize()
+    launches = demod_kernel.demod_full_tm.launches
+    cpu_pkts, _ = run_configure("cpu", CPU_C)
+    if not gpu.steady or gpu.metrics.reconfigures != 1 or launches < 6:
+        raise AssertionError(f"configure: steady {gpu.steady}, launches "
+                             f"{launches}")
+    err = compare(gpu_pkts, cpu_pkts, "configure")
+    log(json.dumps({"phase": "lifecycle", "what": "configure num_avg "
+                    "100->80, phase_avg 50->40 after 4 blocks",
+                    "channels": C, "cpu_channels": CPU_C,
+                    "launches": launches, "back_to_kernel": True,
+                    "max_err_vs_cpu": err}))
+
+    # --- checkpoint: save, load, restore in a fresh engine ---
+    run = FullKernelBatchEngine(cfg, C, block_symbols=S, device=dev)
+    for blk in blocks[:4]:
+        run.push_planes(*planes(blk))
+        run.step_packets()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        path = f"{tmp}/full_state.npz"
+        save_state(path, run.full_state, cfg, extra={"blocks_done": 4})
+        state, cfg_l, extra = load_state(path, dev)
+    resumed = FullKernelBatchEngine(cfg_l, C, block_symbols=S, device=dev)
+    resumed.restore_full_state(state)
+    for blk in blocks[4:7]:
+        run.push_planes(*planes(blk))
+        resumed.push_planes(*planes(blk))
+        a, b = run.step_packets(), resumed.step_packets()
+        if set(a) != set(b) or not all(
+                np.array_equal(a[p].data, b[p].data) for p in a):
+            raise AssertionError("restored engine differs from the "
+                                 "uninterrupted run")
+    log(json.dumps({"phase": "lifecycle", "what": "save_state -> "
+                    "load_state -> restore_full_state", "blocks_after": 3,
+                    "bit_equal": True, "extra": extra}))
+
+    # --- guard_nonfinite: NaN and inf in channel 7, inf in 3's warm-up ---
+    poisoned = [blk.copy() for blk in blocks[:6]]
+    poisoned[0][:16, 3] = np.inf
+    poisoned[2][100:120, 7] = np.nan
+    poisoned[4][400, 7] = np.inf + 1j * np.inf
+
+    def run_guard(device, width, data, guard):
+        eng = FullKernelBatchEngine(cfg, width, block_symbols=S,
+                                    guard_nonfinite=guard, device=device)
+        pkts = []
+        for blk in data:
+            eng.push_planes(*planes(blk, width))
+            pkts.append(eng.step_packets())
+        return pkts, eng
+
+    g_pkts, g_eng = run_guard(dev, C, poisoned, True)
+    r_pkts, _ = run_guard(dev, C, blocks[:6], False)
+    _, cpu_eng = run_guard("cpu", CPU_C, poisoned, True)
+    torch.cuda.synchronize()
+    resyncs = g_eng.channel_resyncs
+    if not (np.array_equal(resyncs[:CPU_C], cpu_eng.channel_resyncs)
+            and not resyncs[CPU_C:].any()
+            and resyncs[3] == 1 and resyncs[7] == 2
+            and resyncs.sum() == 3):
+        raise AssertionError(f"channel_resyncs {np.flatnonzero(resyncs)} "
+                             f"-> {resyncs[resyncs > 0]}, CPU "
+                             f"{cpu_eng.channel_resyncs[:8]}")
+    healthy = np.ones(C, bool)
+    healthy[[3, 7]] = False
+    for a, b in zip(g_pkts, r_pkts):
+        for port in a:
+            da, db = a[port].data, b[port].data
+            if not np.array_equal(da[healthy], db[healthy]):
+                raise AssertionError(f"guard: healthy channels of {port} "
+                                     f"differ from the unpoisoned run")
+    last = g_pkts[-1]["softDecision_dataFloat_out"].data
+    if not np.isfinite(last).all():
+        raise AssertionError("guarded channel still non-finite")
+    log(json.dumps({"phase": "lifecycle", "what": "guard_nonfinite, NaN "
+                    "and inf planted", "channel_resyncs": {
+                        str(c): int(resyncs[c])
+                        for c in np.flatnonzero(resyncs)},
+                    "equal_to_cpu": True, "healthy_bit_equal": True}))
+    return launches
+
+
+def acquire_phase(torch, dev, card: str) -> dict:
+    """Phase 12: ChainEngine(acquire_cfo=True) at full width on the card,
+    per-channel carrier offsets 0.018 + 0.006*c/C cycles/sample (beyond the
+    QPSK tracker's pull-in): every planted frame after the warm-up decoded
+    once with exact bits and the CRC green, the estimates within 1e-4 of
+    the truth, the plain engine decoding fewer than half.  Returns B1's and
+    B2's launches in the acquiring run."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime.chain_engine import ChainEngine
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rng = np.random.default_rng(21)
+    fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 32)), payload=64, m=4,
+                      threshold=0.7)
+    starts, infos, x, n_info = plant_chain_stream(fmt, CODE_K7, CRC16_CCITT,
+                                                  rng)
+    freqs = (0.018 + 0.006 * np.arange(C) / C).astype(np.float32)
+    need = S * SPS
+    n_blocks = 1 + STEADY_BLOCKS
+    planes = []
+    for b in range(n_blocks):
+        t = np.arange(b * need, (b + 1) * need, dtype=np.float64)
+        y = (x * np.exp(2j * np.pi * freqs[:, None].astype(np.float64)
+                        * t[None])).astype(np.complex64)
+        planes.append((np.ascontiguousarray(y.real.T),
+                       np.ascontiguousarray(y.imag.T)))
+    del x, y
+
+    def drive(eng):
+        for re, im in planes:
+            eng.push_planes(re, im)
+            eng.step()
+        eng.flush()
+        torch.cuda.synchronize()
+        return eng.pop_frames()
+
+    acq = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
+                      acquire_cfo=True, device=dev)
+    demod_kernel.demod_full_tm.launches = 0
+    viterbi_kernel.viterbi_fused.launches = 0
+    t0 = time.perf_counter()
+    frames = drive(acq)
+    acq_s = time.perf_counter() - t0
+    launches = {"demod_full_tm": demod_kernel.demod_full_tm.launches,
+                "viterbi_fused": viterbi_kernel.viterbi_fused.launches}
+    if min(launches.values()) < STEADY_BLOCKS:
+        raise AssertionError(f"acquire_cfo launches {launches}")
+    plain_ok = sum(f.crc_ok for f in drive(ChainEngine(
+        cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S, device=dev)))
+
+    a1 = NUM_AVG - 1
+    planted = {(c, b * S + s0): j for b in range(n_blocks)
+               for j, s0 in enumerate(starts) for c in range(C)}
+    must = {key for key in planted if key[1] >= S
+            and key[1] + fmt.frame_len <= n_blocks * S - a1}
+    keys = [(f.channel, f.start) for f in frames]
+    if len(set(keys)) != len(keys) or not must <= set(keys) <= set(planted):
+        raise AssertionError(f"acquire_cfo: {len(must - set(keys))} "
+                             f"planted frames missed, "
+                             f"{len(keys) - len(set(keys))} twice")
+    for f in frames:
+        if not f.crc_ok or not np.array_equal(
+                f.info_bits, infos[f.channel, planted[(f.channel,
+                                                       f.start)]]):
+            raise AssertionError(f"acquire_cfo frame {(f.channel, f.start)}"
+                                 f": CRC {f.crc_ok} or info bits wrong")
+    cfo_err = float(np.abs(acq.cfo_estimates - freqs).max())
+    if cfo_err > CFO_TOL or acq.crc_failures or acq.overflow_peaks:
+        raise AssertionError(f"cfo error {cfo_err}, CRC failures "
+                             f"{acq.crc_failures}")
+    if plain_ok >= len(must) / 2:
+        raise AssertionError(f"the plain engine decoded {plain_ok} of "
+                             f"{len(must)}: the offsets are not beyond "
+                             f"its pull-in")
+    log(json.dumps({"phase": "chain_acquire_cfo", "channels": C,
+                    "blocks": n_blocks, "frames": len(frames),
+                    "frames_required": len(must),
+                    "plain_engine_crc_ok": plain_ok,
+                    "cfo_max_abs_err": cfo_err, "launches": launches,
+                    "card_s": acq_s, "card": card}))
+    return launches
+
+
+def long_trellis_phase(torch, dev) -> dict:
+    """Phase 13: ops/fec.viterbi_decode on a trellis longer than the fused
+    kernel holds (2048 steps): kernels B3 then B4, bits equal to the plain
+    decoder on the CPU.  Returns their launches in that call."""
+    from psk_soft_tpu_torch.ops import fec
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel as vk
+
+    llr = viterbi_llrs(fec.CODE_K7, 32, 2048 - 6, False, 91)
+    vk.viterbi_acs.launches = vk.viterbi_traceback.launches = 0
+    bits = fec.viterbi_decode(fec.CODE_K7, torch.from_numpy(llr).to(dev))
+    torch.cuda.synchronize()
+    launches = {"viterbi_acs": vk.viterbi_acs.launches,
+                "viterbi_traceback": vk.viterbi_traceback.launches}
+    cpu = fec.viterbi_decode(fec.CODE_K7, torch.from_numpy(llr))
+    if min(launches.values()) < 1 or not torch.equal(bits.cpu(), cpu):
+        raise AssertionError(f"long trellis: launches {launches}, bits "
+                             f"equal {torch.equal(bits.cpu(), cpu)}")
+    log(json.dumps({"phase": "long_trellis", "rows": 32, "steps": 2048,
+                    "launches": launches, "bits_equal_to_cpu": True}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -459,7 +910,7 @@ def main() -> int:
         return 1
     from psk_soft_tpu_torch.config import DemodConfig
     from psk_soft_tpu_torch.models import blockpsk, full
-    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, frontend_kernel
     from psk_soft_tpu_torch.ops.cuda import viterbi_kernel
     from psk_soft_tpu_torch.ops.cuda.demod_kernel import (demod_full_tm,
                                                           demod_full_tm_ref)
@@ -495,9 +946,10 @@ def main() -> int:
 
     # --- phase 2: build, one nvcc per source, all started together ---
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {src: pool.submit(mod.load_library) for src, mod in (
-            ("demod_full.cu", demod_kernel), ("viterbi.cu", viterbi_kernel))}
+            ("demod_full.cu", demod_kernel), ("viterbi.cu", viterbi_kernel),
+            ("frontend.cu", frontend_kernel))}
         build_logs = {src: f.result()[1] for src, f in builds.items()}
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for src, build_log in build_logs.items():
@@ -769,9 +1221,20 @@ def main() -> int:
             profile_engine(feed, card)
         bank.close()
 
+    b5 = frontend_phase(torch, dev, card, event_ms, blocks)
     del blocks
+    b5["launches"] = fused_phase(torch, dev, card, frames, profile_engine)
+    b1_lifecycle = lifecycle_phases(torch, dev, card, frames)
+    del frames
     vit = viterbi_phases(torch, dev, card, event_ms)
     chain = chain_phases(torch, dev, card, profile_engine)
+    acq = acquire_phase(torch, dev, card)
+    long_launches = long_trellis_phase(torch, dev)
+    log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
+                    "fused": {"timing_frontend_tm": b5["launches"]},
+                    "lifecycle": {"demod_full_tm": b1_lifecycle},
+                    "chain_acquire_cfo": acq,
+                    "long_trellis_decode": long_launches}))
 
     # --- the kernels line ---
     t = timings[False]
@@ -789,15 +1252,24 @@ def main() -> int:
                  max_abs_err=max_err, ms=min(t["kernel_ms"]),
                  plain_ms=min(t["plain_ms"]), bytes=b1_in + b1_out,
                  ops=b1_ops)]
+    # B2 runs on the chain path; B3 and B4 on the long-trellis decode.
+    path_launches = {"viterbi_fused": chain["launches"]["viterbi_fused"],
+                     **long_launches}
     for name, line in (("viterbi_fused", 312), ("viterbi_acs", 349),
                        ("viterbi_traceback", 391)):
         v = vit[name]
         rows.append(dict(
             name=name, source="viterbi.cu",
             replaces=f"psk_soft_tpu/ops/pallas/viterbi_kernel.py:{line}",
-            launches=chain["launches"][name], max_abs_err=v["max_abs_err"],
+            launches=path_launches[name], max_abs_err=v["max_abs_err"],
             ms=v["ms"], plain_ms=v["plain_ms"], bytes=v["bytes"],
             ops=v["ops"]))
+    rows.append(dict(name="timing_frontend_tm", source="frontend.cu",
+                     replaces="psk_soft_tpu/ops/pallas/frontend.py:83",
+                     **b5))
+    if min(r["launches"] for r in rows) < 1:
+        raise AssertionError(f"a kernel was not launched on its path: "
+                             f"{[(r['name'], r['launches']) for r in rows]}")
     kernels = []
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3

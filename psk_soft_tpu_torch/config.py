@@ -6,7 +6,7 @@ package cannot be imported here: its ``__init__`` loads jax.
 
 The six runtime properties of the reference component are declared in
 ``psk_soft.prf.xml:23-60``.  The config is a frozen dataclass; a property
-change produces a new config (live reconfigure is a later ROADMAP step).
+change produces a new config (FullKernelBatchEngine.configure applies it).
 """
 
 from __future__ import annotations

@@ -25,7 +25,9 @@
 // row is one coalesced 128-byte segment.  The timing window is read
 // through two pointers: row r of [window | block] comes from `win` when
 // r < (num_avg-1)*sps and from `x` otherwise, so the rolling-window mode
-// is just a view of the previous block's last rows (no concatenation).
+// is just a view of the previous block's last rows (no concatenation);
+// that reader and the first-max rule (NaN counts as the maximum, as in the
+// plain version) are shared with kernel B5 through timing.cuh.
 // The window sums slide (add the entering symbol's energy, subtract the
 // leaving one's, re-read from L2) instead of the Pallas kernel's cumsum
 // per time tile.  The phase-history re-wrap happens once, at the end of
@@ -46,6 +48,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "timing.cuh"
 
 namespace {
 
@@ -93,20 +97,8 @@ demod_full_kernel(const Params p) {
   float* wsum = smem + threadIdx.x;
   float* uring = smem + sps * stride + threadIdx.x;
 
-  auto sample = [&](int64_t r, float& re, float& im) {
-    if (r < wrows) {
-      re = p.win_re[r * C + c];
-      im = p.win_im[r * C + c];
-    } else {
-      re = p.x_re[(r - wrows) * C + c];
-      im = p.x_im[(r - wrows) * C + c];
-    }
-  };
-  auto energy = [&](int64_t r) {
-    float re, im;
-    sample(r, re, im);
-    return re * re + im * im;
-  };
+  const psk::TwoPlanes in{p.win_re, p.win_im, p.x_re, p.x_im, wrows, C};
+  auto energy = [&](int64_t r) { return in.energy(r, c); };
 
   // --- carries in ---
   for (int r = 0; r < p.state_rows; ++r)
@@ -145,10 +137,10 @@ demod_full_kernel(const Params p) {
     float best = wsum[0];
     for (int j = 1; j < sps; ++j) {
       const float v = wsum[j * stride];
-      if (v > best) { best = v; b = j; }
+      if (psk::takes_max(v, best)) { best = v; b = j; }
     }
     float sel_re, sel_im;
-    sample((int64_t)o * sps + b, sel_re, sel_im);
+    in.sample((int64_t)o * sps + b, c, sel_re, sel_im);
 
     // C3: M-th power phase.
     float zr = sel_re, zi = sel_im;

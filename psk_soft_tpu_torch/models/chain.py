@@ -1,5 +1,5 @@
 """The receive chain: demod -> frame sync -> Viterbi -> CRC
-(port of ``psk_soft_tpu/models/chain.py:58-258``).
+(port of ``psk_soft_tpu/models/chain.py:58-342``).
 
 Stages, each on the planes' device:
 
@@ -20,9 +20,11 @@ is treated as preceded by ``seam_lead(fmt)`` zero symbols (zero energy, no
 peaks).  Reported ``pos`` is relative to the current block's first soft
 row; negative values mean the frame started in the previous block.
 
-The front-end chain (``FrontState``, ``front_chain_init``,
-``make_front_chain_fn``: NCO and AGC ahead of the demod) waits for ROADMAP
-A.3.
+**Front chain** (``make_front_chain_fn``): NCO derotation
+(``ops/mixer.derotate``, per-channel carrier removal for offsets beyond the
+M-th-power tracker's pull-in) and an optional AGC (``ops/agc.agc_block_tm``)
+run on the (T, C) input planes ahead of kernel B1; the NCO frequency and
+phase and the AGC power ride in the carried ``FrontState``.
 """
 
 from __future__ import annotations
@@ -38,11 +40,6 @@ from ..ops.cuda.viterbi_kernel import viterbi_decode_kernel
 from ..ops.fec import ConvCode, info_bits_for, psk_llrs
 from ..ops.framesync import FrameFormat, sync_extract_topk_tm
 from .full import demod_block_full
-
-
-def _front_later(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP: A.3, the front "
-                      f"chain and ChainEngine's acquire_cfo)")
 
 
 class ChainOutputs(NamedTuple):
@@ -222,18 +219,74 @@ def make_chain_fn(cfg: DemodConfig, fmt: FrameFormat, code: ConvCode,
     return step
 
 
-# --- front-end stages: ROADMAP A.3 -------------------------------------------
+# --- front-end stages ahead of the demod ------------------------------------
 
-class FrontState:
-    """Front-end carry (NCO phase and frequency, AGC); not ported yet."""
+class FrontState(NamedTuple):
+    """Carried front-end state: the NCO phase (continuous across blocks,
+    so derotation never jumps) and frequency, and the AGC power EMA."""
 
-    def __init__(self, *args, **kwargs):
-        raise _front_later("FrontState")
-
-
-def front_chain_init(*args, **kwargs):
-    raise _front_later("front_chain_init")
+    freq: torch.Tensor    # (C,) float32 NCO frequency, cycles/input sample
+    phase: torch.Tensor   # (C,) float32 NCO phase at the block head, rad
+    agc: Any              # ops/agc.AgcState, or None without an AGC
 
 
-def make_front_chain_fn(*args, **kwargs):
-    raise _front_later("make_front_chain_fn")
+class FrontChainState(NamedTuple):
+    front: FrontState
+    demod: Any              # models/full.FullState
+    tail: SeamTailState
+
+
+def front_chain_init(fmt: FrameFormat, channels: int, demod_state, *,
+                     agc_cfg=None, freq=None) -> FrontChainState:
+    """Wrap a converged demod state for :func:`make_front_chain_fn`, on
+    the demod state's device.
+
+    freq: (C,) NCO frequencies in cycles/input sample (e.g. from
+    eval/cfo.acquire_cfo); zeros when only the AGC is wanted.
+    """
+    from ..ops.agc import agc_init
+
+    dev = demod_state.planes.device
+    f = (torch.zeros((channels,), dtype=torch.float32, device=dev)
+         if freq is None
+         else torch.as_tensor(freq, dtype=torch.float32, device=dev))
+    agc = agc_init(agc_cfg, channels, dev) if agc_cfg is not None else None
+    front = FrontState(freq=f, phase=torch.zeros((channels,),
+                                                 dtype=torch.float32,
+                                                 device=dev), agc=agc)
+    return FrontChainState(front, demod_state,
+                           seam_tail_init(fmt, channels, dev))
+
+
+def make_front_chain_fn(cfg: DemodConfig, fmt: FrameFormat, code: ConvCode,
+                        k_frames: int, crc: CrcSpec | None = None, *,
+                        agc_cfg=None, labeling: str = "gray",
+                        debug_ports: bool = False):
+    """The seam chain with the front end ahead of kernel B1: NCO
+    derotation, then the optional AGC, then demod, sync, Viterbi and CRC as
+    in :func:`make_chain_fn` (seam mode).
+
+    Returns ``step(state, x_re, x_im) -> (state', ChainOutputs)`` with
+    ``state`` a :class:`FrontChainState` (build via
+    :func:`front_chain_init`).  The NCO frequency lives in the state, so a
+    new estimate is a new state, not a new function.
+    """
+    from ..ops.agc import agc_block_tm
+    from ..ops.mixer import derotate
+
+    tail_step = make_seam_tail_fn(fmt, code, k_frames, crc=crc,
+                                  labeling=labeling)
+
+    def step(state: FrontChainState, x_re, x_im):
+        fr = state.front
+        y_re, y_im, phase2 = derotate(x_re, x_im, fr.freq, fr.phase)
+        agc2 = fr.agc
+        if agc_cfg is not None:
+            agc2, y_re, y_im, _ = agc_block_tm(agc_cfg, fr.agc, y_re, y_im)
+        st2, fo = demod_block_full(cfg, state.demod, y_re, y_im,
+                                   debug_ports=debug_ports)
+        tail2, out = tail_step(state.tail, fo.soft_re, fo.soft_im)
+        return FrontChainState(FrontState(fr.freq, phase2, agc2), st2,
+                               tail2), out
+
+    return step

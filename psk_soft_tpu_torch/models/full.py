@@ -59,9 +59,9 @@ class QuantSoft(NamedTuple):
 
 
 def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
-    """Convert a *converged* channel-batched FFState carry to the kernel's
-    carry, on the FFState's device.  Host-side numpy, called once at the
-    warm-up -> steady transition."""
+    """Convert a *converged* channel-batched FFState (or FusedState) carry
+    to the kernel's carry, on the state's device.  Host-side numpy, called
+    once at the warm-up -> steady transition."""
     k = UNWRAP_TREND_LEN
     n1 = cfg.phase_avg - 1
     if n1 < k:
@@ -71,10 +71,14 @@ def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
     device = ff_state.phase_hist.device
     hist = ff_state.phase_hist.cpu().numpy()      # (C, n-1) oldest..newest
     c = hist.shape[0]
-    win = ff_state.win_samples.cpu().numpy()      # (C, A-1, sps)
-    flat = win.reshape(c, -1)
-    win_re = np.ascontiguousarray(flat.real.T).astype(np.float32)
-    win_im = np.ascontiguousarray(flat.imag.T).astype(np.float32)
+    if hasattr(ff_state, "win_re"):               # FusedState (time-major)
+        win_re = ff_state.win_re.cpu().numpy()
+        win_im = ff_state.win_im.cpu().numpy()
+    else:                                         # FFState (channel-major)
+        win = ff_state.win_samples.cpu().numpy()  # (C, A-1, sps)
+        flat = win.reshape(c, -1)
+        win_re = np.ascontiguousarray(flat.real.T).astype(np.float32)
+        win_im = np.ascontiguousarray(flat.imag.T).astype(np.float32)
 
     rs = demod_kernel.state_rows(cfg.phase_avg, k)
     planes = np.zeros((rs, c), np.float32)
@@ -94,6 +98,47 @@ def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
     planes[misc + 3] = last_any.imag
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return FullState(win_re=to(win_re), win_im=to(win_im), planes=to(planes))
+
+
+def ff_from_full(cfg: DemodConfig, state: FullState):
+    """Convert the kernel carry back to a converged FFState, on the carry's
+    device: the inverse of :func:`full_from_ff`, used by the engine's live
+    reconfigure.  The state planes are the feed-forward carry in another
+    layout: ``planes[:n-1]`` is the unwrapped-phase history (newest ==
+    last_phase after the end-of-block re-wrap), ``planes[misc+2/3]`` the
+    previous decision sample.  Host-side numpy, once per property change."""
+    from .blockpsk import FFState
+
+    if cfg.matched_filter != "none":
+        raise ValueError(_MF_LATER)
+    if state.win_re.dtype != torch.float32:
+        raise ValueError("an int16 window (ingest_scale) is not ported yet "
+                         "(ROADMAP: kernel B1 mode 'int16 ingest')")
+    k = UNWRAP_TREND_LEN
+    n1 = cfg.phase_avg - 1
+    device = state.planes.device
+    planes = state.planes.cpu().numpy()
+    c = planes.shape[1]
+    misc = n1 + 2 * (k - 1)
+    raw = (state.win_re.cpu().numpy().T
+           + 1j * state.win_im.cpu().numpy().T).astype(np.complex64)
+    win = raw.reshape(c, cfg.num_avg - 1, cfg.sps)
+    hist = np.ascontiguousarray(planes[:n1].T)    # (C, n-1) oldest..newest
+    last_any = (planes[misc + 2] + 1j * planes[misc + 3]).astype(np.complex64)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731,E501
+    full_i32 = lambda v: torch.full((c,), v, dtype=torch.int32,  # noqa: E731
+                                    device=device)
+    return FFState(
+        win_samples=to(win),
+        win_energy=to((win.real ** 2 + win.imag ** 2).astype(np.float32)),
+        seen=full_i32(cfg.num_avg),
+        phase_hist=to(hist.astype(np.float32)),
+        phase_count=full_i32(cfg.phase_avg),
+        last_phase=to(hist[:, -1].astype(np.float32) if n1 > 0
+                      else np.zeros(c, np.float32)),
+        last_any=to(last_any),
+        mf_tail=torch.zeros((c, 0), dtype=torch.complex64, device=device),
+    )
 
 
 def _kernel_kwargs(cfg: DemodConfig, pack_out, soft_i8_scale, debug_ports):

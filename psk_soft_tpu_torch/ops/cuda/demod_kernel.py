@@ -37,7 +37,9 @@ from ...ops.linear_fit import endpoint_fir_weights
 from ...ops.phase import TWO_PI, UNWRAP_TREND_LEN
 from ...utils.build import REPO_ROOT, build_shared
 
-SOURCE = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "demod_full.cu"
+CSRC = REPO_ROOT / "psk_soft_tpu_torch" / "csrc"
+SOURCE = CSRC / "demod_full.cu"
+TIMING_HEADER = CSRC / "timing.cuh"     # shared with kernel B5
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -253,7 +255,8 @@ def nvcc_path() -> str:
 def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
-    path, log = build_shared(SOURCE, "demod_full", [nvcc_path()], NVCC_FLAGS)
+    path, log = build_shared(SOURCE, "demod_full", [nvcc_path()], NVCC_FLAGS,
+                             headers=(TIMING_HEADER,))
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.psk_demod_full_tm.restype = i32

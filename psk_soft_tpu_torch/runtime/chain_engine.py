@@ -22,12 +22,16 @@ Semantics, as in the JAX engine:
 - **Observability**: ``frames_synced``, ``crc_failures`` and
   ``overflow_peaks`` (count > k, never silent).
 
+- **Carrier acquisition** (``acquire_cfo=True``): the warm block gives a
+  per-channel coarse offset (M-th-power spectrum, ``eval/cfo.acquire_cfo``)
+  and is derotated on the host; the steady blocks run the front chain
+  (``models/chain.make_front_chain_fn``) whose NCO continues the warm
+  block's phase.  ``set_cfo`` changes the frequencies mid-stream.
+
 Frames come back as ``ops/framesync.Frame`` objects with ``start`` in
 input-symbol coordinates (a frame planted at input symbol p syncs at
 start == p), ``info_bits`` decoded and ``crc_ok`` set when a CRC is
 configured.
-
-``acquire_cfo`` and ``set_cfo`` (the front chain) wait for ROADMAP A.3.
 """
 
 from __future__ import annotations
@@ -36,14 +40,18 @@ import numpy as np
 import torch
 
 from ..config import DemodConfig
+from ..eval.cfo import acquire_cfo as acquire_cfo_host
 from ..models import blockpsk
-from ..models.chain import (ChainState, SeamTailState, _front_later,
-                            _need_after, chain_msg_bits, chain_tail,
-                            make_chain_fn, seam_lead, seam_tail_init)
+from ..models.chain import (ChainState, FrontChainState, FrontState,
+                            SeamTailState, _need_after, chain_msg_bits,
+                            chain_tail, make_chain_fn, make_front_chain_fn,
+                            seam_lead, seam_tail_init)
 from ..models.full import full_from_ff
 from ..ops.crc import CrcSpec
 from ..ops.fec import ConvCode
 from ..ops.framesync import Frame, FrameFormat
+from ..ops.mixer import derotate_host
+from ..ops.phase import wrap_to_pi
 
 
 class ChainEngine:
@@ -60,7 +68,12 @@ class ChainEngine:
       block_symbols: symbols per device step.
       pipeline_depth: 0 = synchronous; 1 = commit block k-1 after block
         k's device work has been queued (frames lag one step).
-      acquire_cfo: not ported yet (raises).
+      acquire_cfo: estimate a per-channel carrier offset from the warm
+        block and remove it with the front chain's NCO: offsets beyond the
+        tracker's pull-in (~1/(2*pi*M*sps) per symbol) up to the
+        acquisition's unambiguous |cfo| < 1/(2M) cycles/sample (beyond it
+        the estimate aliases and CRC failures show it).  Fixed after the
+        warm-up unless :meth:`set_cfo` changes it.
       labeling: payload bit labeling, "gray" or "scd".
       device: where the chain runs ("cuda" unless the caller asks for the
         CPU, which runs every kernel's plain version).
@@ -82,8 +95,6 @@ class ChainEngine:
             raise ValueError("ChainEngine supports matched_filter='none' "
                              "configs; use the per-stage stack (engine + "
                              "FrameSyncer + FecFrameDecoder) otherwise")
-        if acquire_cfo:
-            raise _front_later("acquire_cfo")
         self.cfg = cfg
         self.channels = channels
         self.fmt = fmt
@@ -98,9 +109,9 @@ class ChainEngine:
                   else self.block_symbols // fmt.separation + 1)
         self.n_msg = chain_msg_bits(fmt, code, crc)
         self._labeling = labeling
-        self.acquire_cfo = False
-        self._step = make_chain_fn(cfg, fmt, code, self.k, crc=crc,
-                                   labeling=labeling)
+        self.acquire_cfo = bool(acquire_cfo)
+        make = make_front_chain_fn if self.acquire_cfo else make_chain_fn
+        self._step = make(cfg, fmt, code, self.k, crc=crc, labeling=labeling)
         self._pipe_depth = int(pipeline_depth)
         self.frames_synced = 0
         self.crc_failures = 0
@@ -188,7 +199,13 @@ class ChainEngine:
 
     def _warm(self, x: np.ndarray) -> None:
         """Converge through the feed-forward pipeline; seed the seam tail
-        from the warm block's own soft output."""
+        from the warm block's own soft output.  With acquire_cfo the warm
+        block first gives the coarse offsets and is derotated on the host."""
+        freq = None
+        if self.acquire_cfo:
+            freq = np.asarray(acquire_cfo_host(x, self.cfg.constellation_size),
+                              np.float32)
+            x = derotate_host(x, freq)
         st_ff, out = blockpsk.demod_block_ff(
             self.cfg, blockpsk.ff_init(self.cfg, self.channels, self.device),
             torch.from_numpy(x).to(self.device))
@@ -205,7 +222,16 @@ class ChainEngine:
             t_re[lead - n:] = soft.real.T
             t_im[lead - n:] = soft.imag.T
             tail = SeamTailState(t_re, t_im)
-        self._state = ChainState(full, tail)
+        if self.acquire_cfo:
+            # NCO phase continuity: derotate_host ran the warm block from
+            # phase 0, so the NCO starts where it left off.
+            phase = wrap_to_pi(torch.from_numpy(
+                2 * np.pi * freq * x.shape[1]))
+            front = FrontState(freq=torch.from_numpy(freq).to(self.device),
+                               phase=phase.to(self.device), agc=None)
+            self._state = FrontChainState(front, full, tail)
+        else:
+            self._state = ChainState(full, tail)
         self.warmup_symbols = self._base = x.shape[1] // self.cfg.sps
 
     def _commit(self, out, block_index: int) -> list[Frame]:
@@ -306,31 +332,51 @@ class ChainEngine:
         return out
 
     def set_cfo(self, freq) -> None:
-        raise _front_later("set_cfo")
+        """New NCO frequencies (scalar or (C,), cycles/input sample) from
+        the next block on.  The step is a phase discontinuity that the
+        tracker and the per-frame UW rotation absorb within about numAvg
+        symbols; frames in that window may fail the CRC (counted)."""
+        if not self.acquire_cfo:
+            raise ValueError("set_cfo needs acquire_cfo=True (the plain "
+                             "chain has no NCO)")
+        if self._state is None:
+            raise ValueError("engine not warmed up yet")
+        f = torch.from_numpy(np.array(np.broadcast_to(
+            np.asarray(freq, np.float32), (self.channels,))))
+        self._state = self._state._replace(
+            front=self._state.front._replace(freq=f.to(self.device)))
 
     @property
     def cfo_estimates(self):
-        """Per-channel NCO frequencies: None (acquire_cfo not ported)."""
-        return None
+        """Per-channel NCO frequencies (cycles/input sample, numpy) with
+        acquire_cfo on; None otherwise or before the warm-up."""
+        if not self.acquire_cfo or self._state is None:
+            return None
+        return self._state.front.freq.cpu().numpy()
 
     # -- checkpoint/resume -------------------------------------------------
 
     @property
     def chain_state(self):
-        """The current carry, a ChainState (None during warm-up); restore
-        with :meth:`restore_chain_state`."""
+        """The current carry: a ChainState, or a FrontChainState with
+        acquire_cfo on (None during warm-up).  Save it with
+        utils.checkpoint.save_state; resume with
+        :meth:`restore_chain_state`."""
         return self._state
 
-    def restore_chain_state(self, state: ChainState, *,
-                            base_symbols: int | None = None,
+    def restore_chain_state(self, state, *, base_symbols: int | None = None,
                             blocks_done: int = 0) -> None:
-        """Resume from a carry (e.g. ``utils/interop.chain_state_from_numpy``
-        of a JAX ChainState): an exact mid-stream restart.  Staged samples
-        and buffered frames from before are discarded.  base_symbols /
-        blocks_done restore the input-symbol clock of Frame.start."""
-        if not isinstance(state, ChainState):
-            raise ValueError(f"engine needs a ChainState carry, got "
-                             f"{type(state).__name__}")
+        """Resume from a carry (utils.checkpoint.load_state, or
+        utils/interop from a JAX carry): a ChainState, or a FrontChainState
+        for an acquire_cfo engine.  An exact mid-stream restart; staged
+        samples and buffered frames from before are discarded.
+        base_symbols / blocks_done restore the input-symbol clock of
+        Frame.start (keep them in the checkpoint's ``extra``)."""
+        want = FrontChainState if self.acquire_cfo else ChainState
+        if not isinstance(state, want):
+            raise ValueError(f"engine needs a {want.__name__} carry, got "
+                             f"{type(state).__name__} (acquire_cfo "
+                             f"mismatch)")
         tail = state.tail.tail_re
         lead = seam_lead(self.fmt)
         if tuple(tail.shape) != (lead, self.channels):

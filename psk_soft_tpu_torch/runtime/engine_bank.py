@@ -1,6 +1,6 @@
 """Bank packet layer: time-major outputs, SRI/timestamp assembly, and
 deferred-assembly pipelining (port of
-``psk_soft_tpu/runtime/engine_bank.py:20-330``).
+``psk_soft_tpu/runtime/engine_bank.py:20-338``).
 
 The device->host fetch is ``tensor.cpu().numpy()``.  Pipelining defers it
 by ``pipeline_depth`` blocks (the JAX engine's contract); everything runs on
@@ -69,6 +69,13 @@ class BankAssembler:
             self._dirty = True
         if self._t0 is None:
             self._t0 = t
+
+    def reconfigure(self, cfg: DemodConfig) -> None:
+        """New config: the output SRIs change and the clock re-anchors."""
+        self.cfg = cfg
+        self._dirty = True
+        self._k0 = 0
+        self._t0 = None
 
     def reset(self) -> None:
         self._k0 = 0
@@ -187,6 +194,7 @@ class _PipelinedPackets:
             raise ValueError("pipeline_depth must be >= 0")
         self._pipe_depth = int(depth)
         self._pending: list = []     # device outputs not yet assembled
+        self._held: list = []        # assembled packets not yet returned
         self.port_stats: dict = {}   # per-output-port PortStats
 
     def _emit(self, out, eos: bool = False) -> dict[str, Packet]:
@@ -205,10 +213,24 @@ class _PipelinedPackets:
                 self.metrics.bits_out += int(bitsp.data.size)
         return record_packets(self.port_stats, pkts)
 
+    def _drain_pending(self) -> None:
+        """Assemble every in-flight block now; the packets are held and
+        returned first by the next step_packets calls.  configure() calls
+        this so blocks computed under the old config never get the new
+        config's SRI and timestamps."""
+        for out in self._pending:
+            pkts = self._emit(out)
+            if pkts:
+                self._held.append(pkts)
+        self._pending.clear()
+
     def step_packets(self) -> Optional[dict[str, Packet]]:
         """step() + packet assembly: {port: Packet} with SRI/timestamps.
         Returns None when nothing is ready to emit (distinct from {} = a
-        block ran but emitted nothing)."""
+        block ran but emitted nothing).  Packets held back by a
+        reconfigure come out first, one per call."""
+        if self._held:
+            return self._held.pop(0)
         out = self._step_core()
         if self._pipe_depth == 0:
             return None if out is None else self._emit(out)
@@ -219,10 +241,13 @@ class _PipelinedPackets:
         return None
 
     def flush_packets(self) -> dict[str, Packet]:
-        """flush() + assembly, EOS-marked on every port.  Pipelined blocks
-        still in flight are assembled first and merged along the symbol
-        axis, so the merged packet's head timestamp stays symbol-accurate."""
-        dicts = [p for p in (self._emit(o) for o in self._pending) if p]
+        """flush() + assembly, EOS-marked on every port.  Held packets and
+        pipelined blocks still in flight are assembled first and merged
+        along the symbol axis, so the merged packet's head timestamp stays
+        symbol-accurate."""
+        dicts = list(self._held)
+        self._held = []
+        dicts += [p for p in (self._emit(o) for o in self._pending) if p]
         self._pending = []
         dicts.append(self._emit(self._flush_core(), eos=True))
         return _merge_packet_dicts(dicts)

@@ -7,8 +7,13 @@ time-major block, with packets for the four REDHAWK ports.  Every block's
 window carry is a view of the previous block's last rows, so the JAX
 engine's rolling-window fast path and its fallback are one path here.
 
+Lifecycle: ``configure`` (live property change: the kernel carry goes back
+to the feed-forward layout, is resynced and re-warms), ``full_state`` /
+``restore_full_state`` (mid-stream restart, with utils/checkpoint) and
+``guard_nonfinite`` (a channel whose outputs go non-finite restarts alone;
+``channel_resyncs`` counts it).
+
 Not ported yet, each raising ValueError that names its ROADMAP step:
-``configure``, ``restore_full_state``, ``guard_nonfinite``,
 ``ingest_scale`` (int16 planes), ``timing_interp`` and matched-filter
 configs, the mixed-mode bank.
 """
@@ -22,12 +27,38 @@ from ..config import DemodConfig
 from ..models import blockpsk, full as full_mod
 from ..ops.phase import UNWRAP_TREND_LEN
 from .engine_bank import BankAssembler, TMOutputs, _PipelinedPackets
-from .engine_stream import EngineMetrics
+from .engine_stream import EngineMetrics, reconfigure_ff
 from .streams import SRI
 
 
 def _later(what: str, step: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (ROADMAP: {step})")
+
+
+_INT16_LATER = ("int16 ingest (ingest_scale)", "kernel B1 mode 'int16 ingest'")
+
+
+def _check_cfg(cfg: DemodConfig) -> None:
+    """Raise on configs the steady kernel does not serve (at construction
+    and before a reconfigure touches any state)."""
+    if cfg.matched_filter != "none":
+        raise _later("a matched filter on the steady kernel",
+                     "kernel B1 mode 'matched filter'")
+    if cfg.timing_interp:
+        raise _later("timing_interp", "kernel B1 mode 'timing_interp'")
+    if cfg.sps <= 1:
+        raise ValueError("full kernel supports sps > 1")
+    if cfg.phase_avg < UNWRAP_TREND_LEN + 1 or cfg.num_avg < 2:
+        raise ValueError(f"full kernel requires phase_avg >= "
+                         f"{UNWRAP_TREND_LEN + 1} and num_avg >= 2")
+
+
+def _nonfinite_channels(*planes, axis: int) -> torch.Tensor:
+    """(C,) bool: channels with any non-finite value in any plane."""
+    ok = torch.ones((), dtype=torch.bool, device=planes[0].device)
+    for p in planes:
+        ok = ok & torch.isfinite(p)
+    return ~ok.all(dim=axis)
 
 
 class FullKernelBatchEngine(_PipelinedPackets):
@@ -45,22 +76,22 @@ class FullKernelBatchEngine(_PipelinedPackets):
                  device="cuda"):
         if channels % 128:
             raise ValueError("channels must be a multiple of 128")
+        if guard_nonfinite and pipeline_depth:
+            raise ValueError("guard_nonfinite and pipeline_depth are "
+                             "mutually exclusive")
+        if guard_nonfinite and soft_i8:
+            # The guard reads isfinite off the soft planes; int8 planes
+            # quantize non-finite values away.
+            raise ValueError("guard_nonfinite and soft_i8 are mutually "
+                             "exclusive")
         if ingest_scale is not None:
-            raise _later("int16 ingest (ingest_scale)",
-                         "kernel B1 mode 'int16 ingest'")
-        if guard_nonfinite:
-            raise _later("guard_nonfinite", "engine lifecycle")
-        if cfg.matched_filter != "none":
-            raise _later("a matched filter on the steady kernel",
-                         "kernel B1 mode 'matched filter'")
-        if cfg.timing_interp:
-            raise _later("timing_interp", "kernel B1 mode 'timing_interp'")
-        if cfg.sps <= 1:
-            raise ValueError("full kernel supports sps > 1")
-        if cfg.phase_avg < UNWRAP_TREND_LEN + 1 or cfg.num_avg < 2:
-            raise ValueError(f"full kernel requires phase_avg >= "
-                             f"{UNWRAP_TREND_LEN + 1} and num_avg >= 2")
+            raise _later(*_INT16_LATER)
+        _check_cfg(cfg)
         self._init_pipeline(pipeline_depth)
+        # guard_nonfinite: per-channel drop-and-resync.  Costs one (C,) bool
+        # fetch per block to learn which channels went bad.
+        self.guard_nonfinite = bool(guard_nonfinite)
+        self.channel_resyncs = np.zeros(channels, np.int64)
         self.cfg = cfg
         self.channels = channels
         self.block_symbols = int(block_symbols)
@@ -87,17 +118,64 @@ class FullKernelBatchEngine(_PipelinedPackets):
         self._plane_rows = 0
         self._consumed = 0
         self._pending.clear()
+        self._held.clear()
 
     @property
     def steady(self) -> bool:
         return self._full_state is not None
 
+    @property
+    def full_state(self):
+        """The steady kernel's carry as a FullState (None during warm-up):
+        the window planes are views of the last block's rows.  Save it with
+        utils.checkpoint.save_state; resume with :meth:`restore_full_state`."""
+        return self._full_state
+
     def restore_full_state(self, state) -> None:
-        raise _later("restore_full_state", "engine lifecycle")
+        """Resume the steady kernel from a checkpointed FullState
+        (utils.checkpoint.load_state): an exact mid-stream restart (the
+        reference re-converges blind over numAvg*sps samples).  Staged
+        samples, pipelined blocks and the packet clock of the old stream
+        are discarded."""
+        if state.win_re.dtype == torch.int16:
+            raise _later("an int16 window (ingest_scale)", _INT16_LATER[1])
+        rows = (self.cfg.num_avg - 1) * self.cfg.sps
+        if tuple(state.win_re.shape) != (rows, self.channels):
+            raise ValueError(
+                f"state window is {tuple(state.win_re.shape)}, engine needs "
+                f"{(rows, self.channels)} (config/channel mismatch)")
+        self._clear_stream()
+        self.assembler.reset()
+        self._full_state = full_mod.FullState(
+            *(t.to(self.device).contiguous() for t in state))
+        self._warm_state = None
+        self._consumed = self.cfg.num_avg + self.cfg.phase_avg
 
     def configure(self, new_cfg: DemodConfig) -> None:
-        raise _later("configure (needs ff_from_full and reconfigure_ff)",
-                     "engine lifecycle")
+        """Live property change (C7 resync semantics, reference
+        cpp/psk_soft.cpp:638-651).  In-flight blocks are assembled under
+        the old config first (held for step_packets).  The kernel carry
+        goes back to the feed-forward layout (models/full.ff_from_full),
+        is resynced (reconfigure_ff: timing window re-binned or cut, phase
+        history kept or cleared) and the engine re-warms on the flexible
+        path before handing back to the kernel, so tracking survives
+        compatible changes."""
+        if new_cfg == self.cfg:
+            return
+        _check_cfg(new_cfg)
+        self._drain_pending()
+        if self._full_state is not None:
+            ff = full_mod.ff_from_full(self.cfg, self._full_state)
+            self._full_state = None
+        else:
+            ff = self._warm_state
+        self._warm_state = reconfigure_ff(self.cfg, new_cfg, ff)
+        self.cfg = new_cfg
+        # Re-run the warm-up gate: a resync may leave partially filled
+        # windows that the steady kernel cannot represent.
+        self._consumed = 0
+        self.assembler.reconfigure(new_cfg)
+        self.metrics.reconfigures += 1
 
     def reset(self) -> None:
         """Full state reset (the resetState property / queue-flush answer)."""
@@ -126,8 +204,7 @@ class FullKernelBatchEngine(_PipelinedPackets):
         if re.shape != im.shape or re.ndim != 2 or re.shape[1] != self.channels:
             raise ValueError(f"expected (rows, {self.channels}) planes")
         if re.dtype == torch.int16:
-            raise _later("int16 planes (ingest_scale)",
-                         "kernel B1 mode 'int16 ingest'")
+            raise _later("int16 planes (ingest_scale)", _INT16_LATER[1])
         if re.dtype != torch.float32 or im.dtype != torch.float32:
             raise ValueError(f"planes must be float32, got {re.dtype}")
         if any(s.size for s in self._staging):
@@ -209,6 +286,47 @@ class FullKernelBatchEngine(_PipelinedPackets):
             soft_i8_scale=self._soft_scale, debug_ports=self.debug_ports)
         return fo
 
+    def _note_bad(self, bad: torch.Tensor) -> np.ndarray:
+        """Count the (C,) bad channels; returns them as a host mask."""
+        nbad = bad.cpu().numpy()
+        if nbad.any():
+            self.channel_resyncs[nbad] += 1
+            self.metrics.resets += int(nbad.sum())
+        return nbad
+
+    def _guard_full(self, fo) -> None:
+        """Per-channel drop-and-resync on the steady carry: a channel with
+        a non-finite output this block gets a zero window and zero state
+        columns, and re-converges within numAvg + phaseAvg symbols (the
+        per-channel analogue of the reference's queue-flush reset,
+        cpp/psk_soft.cpp:353-357).  The window is a view of the caller's
+        block, so it is never zeroed in place: a fresh window is built, and
+        only in a block where a channel went bad."""
+        phase = fo.phase if fo.phase is not None else fo.soft_re
+        bad = _nonfinite_channels(fo.soft_re, fo.soft_im, phase, axis=0)
+        if not self._note_bad(bad).any():
+            return
+        st = self._full_state
+        zero = torch.zeros((), dtype=torch.float32, device=bad.device)
+        self._full_state = full_mod.FullState(
+            *(torch.where(bad[None, :], zero, t) for t in st))
+
+    def _guard_warm(self, out) -> None:
+        """Warm-up guard: a channel with a non-finite output restarts its
+        feed-forward carry columns from scratch."""
+        bad = _nonfinite_channels(out.soft.real, out.soft.imag, out.phase,
+                                  axis=-1)
+        if not self._note_bad(bad).any():
+            return
+        fresh = blockpsk.ff_init(self.cfg, self.channels, self.device)
+
+        def pick(new, old):
+            return torch.where(bad.reshape((-1,) + (1,) * (old.ndim - 1)),
+                               new, old)
+
+        self._warm_state = blockpsk.FFState(
+            *(pick(n, o) for n, o in zip(fresh, self._warm_state)))
+
     def _step_core(self):
         """One block: warm-up returns channel-major DemodOutputs; the
         steady kernel returns raw TMOutputs (time-major device planes)."""
@@ -219,12 +337,16 @@ class FullKernelBatchEngine(_PipelinedPackets):
         if self._full_state is None:
             self._warm_state, out = blockpsk.demod_block_ff(
                 self.cfg, self._warm_state, self._cmajor(kind, blk))
+            if self.guard_nonfinite:
+                self._guard_warm(out)
             if self._consumed >= self.cfg.num_avg + self.cfg.phase_avg:
                 self._full_state = full_mod.full_from_ff(self.cfg,
                                                          self._warm_state)
                 self._warm_state = None
         else:
             fo = self._steady_step(*self._tmajor(kind, blk))
+            if self.guard_nonfinite:
+                self._guard_full(fo)
             out = TMOutputs(fo=fo, soft_scale=self._soft_scale)
         self._count(out)
         return out

@@ -2,8 +2,8 @@
 
 Each library is compiled from its source in the checkout into
 ``build/psk_soft_tpu_torch/`` (git-ignored), under a file name keyed by a
-hash of the source and the compile command, so an edited source or flag
-rebuilds and a stale library is never loaded.  The compiler writes to a
+hash of the source, the headers it includes and the compile command, so an
+edited source, header or flag rebuilds and a stale library is never loaded.  The compiler writes to a
 temporary name that is renamed into place, so concurrent builds (test
 workers) never load a half-written file.  Builds of different libraries in
 one process run in parallel (one lock per library name).
@@ -31,10 +31,12 @@ def _lock_for(name: str) -> threading.Lock:
 
 
 def build_shared(source: Path, name: str, compiler: list[str],
-                 flags: list[str]) -> tuple[Path, str]:
-    """Compile ``source`` into a shared library unless an up-to-date one
-    exists.  Returns (library path, compiler output of this build or "")."""
-    key = hashlib.sha256(source.read_bytes()
+                 flags: list[str],
+                 headers: tuple[Path, ...] = ()) -> tuple[Path, str]:
+    """Compile ``source`` (which includes ``headers``) into a shared
+    library unless an up-to-date one exists.  Returns (library path,
+    compiler output of this build or "")."""
+    key = hashlib.sha256(b"".join(p.read_bytes() for p in (source, *headers))
                          + " ".join(compiler + flags).encode()).hexdigest()
     out = BUILD_DIR / f"{name}-{key[:16]}.so"
     with _lock_for(name):

@@ -16,8 +16,11 @@ import torch
 
 from ..config import DemodConfig
 from ..models.blockpsk import FFState
-from ..models.chain import ChainState, SeamTailState
+from ..models.chain import (ChainState, FrontChainState, FrontState,
+                            SeamTailState)
 from ..models.full import FullState
+from ..models.fused import FusedState
+from ..ops.agc import AgcConfig, AgcState
 from ..ops.crc import CrcSpec
 from ..ops.fec import ConvCode
 from ..ops.framesync import FrameFormat
@@ -51,6 +54,15 @@ def full_state_from_numpy(arrays: Mapping, device) -> FullState:
     return _from_numpy(FullState, arrays, device)
 
 
+def fused_state_from_numpy(arrays: Mapping, device) -> FusedState:
+    """FusedState on ``device`` from a mapping of its fields."""
+    return _from_numpy(FusedState, arrays, device)
+
+
+def fused_state_to_numpy(state: FusedState) -> dict:
+    return _to_numpy(state)
+
+
 def ff_state_to_numpy(state: FFState) -> dict:
     return _to_numpy(state)
 
@@ -81,3 +93,38 @@ def chain_state_from_numpy(demod: Mapping, tail: Mapping,
     (tail_re, tail_im), e.g. the JAX ChainState's fields as numpy."""
     return ChainState(full_state_from_numpy(demod, device),
                       _from_numpy(SeamTailState, tail, device))
+
+
+def chain_state_to_numpy(state: ChainState) -> dict:
+    """{"demod": FullState fields, "tail": SeamTailState fields}."""
+    return {"demod": _to_numpy(state.demod), "tail": _to_numpy(state.tail)}
+
+
+def agc_config_from_jax_dict(d: Mapping) -> AgcConfig:
+    """AgcConfig from ``dataclasses.asdict`` of the JAX AgcConfig."""
+    return AgcConfig(**d)
+
+
+def front_chain_state_from_numpy(front: Mapping, demod: Mapping,
+                                 tail: Mapping, device) -> FrontChainState:
+    """The front chain carry on ``device``: ``front`` maps freq, phase and
+    agc (a mapping of the AgcState fields, or None without an AGC);
+    ``demod`` and ``tail`` as in :func:`chain_state_from_numpy`."""
+    agc = front.get("agc")
+    fs = FrontState(
+        freq=torch.from_numpy(np.array(front["freq"], np.float32)).to(device),
+        phase=torch.from_numpy(np.array(front["phase"],
+                                        np.float32)).to(device),
+        agc=None if agc is None else _from_numpy(AgcState, agc, device))
+    chain = chain_state_from_numpy(demod, tail, device)
+    return FrontChainState(fs, chain.demod, chain.tail)
+
+
+def front_chain_state_to_numpy(state: FrontChainState) -> dict:
+    """{"front": {freq, phase, agc (dict or None)}, "demod": ..., "tail":
+    ...} of numpy arrays."""
+    fr = state.front
+    return {"front": {"freq": fr.freq.cpu().numpy(),
+                      "phase": fr.phase.cpu().numpy(),
+                      "agc": None if fr.agc is None else _to_numpy(fr.agc)},
+            **chain_state_to_numpy(state)}

@@ -34,6 +34,8 @@ from psk_soft_tpu.ops.framesync import psk_points
 from psk_soft_tpu.runtime.chain_engine import ChainEngine as JaxChainEngine
 from psk_soft_tpu_torch.config import DemodConfig
 from psk_soft_tpu_torch.models import chain
+from psk_soft_tpu_torch.models.blockpsk import ff_init
+from psk_soft_tpu_torch.models.full import full_from_ff
 from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
 from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
 from psk_soft_tpu_torch.ops.fec import CODE_K7, info_bits_for
@@ -434,13 +436,13 @@ def test_chain_engine_validation_and_later_steps():
         ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=30, device="cpu")
     with pytest.raises(ValueError, match="pipeline_depth"):
         ChainEngine(cfg, C, fmt, CODE_K7, pipeline_depth=2, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP: A.3"):
-        ChainEngine(cfg, C, fmt, CODE_K7, acquire_cfo=True, device="cpu")
+    acq = ChainEngine(cfg, C, fmt, CODE_K7, acquire_cfo=True, device="cpu")
+    assert acq.acquire_cfo and acq.cfo_estimates is None     # not warm yet
     eng = ChainEngine(cfg, C, fmt, CODE_K7, block_symbols=128, device="cpu")
     assert eng.k == 128 // fmt.separation + 1
     assert eng.device == torch.device("cpu")
     assert ChainEngine(cfg, C, fmt, CODE_K7).device.type == "cuda"
-    with pytest.raises(ValueError, match="ROADMAP: A.3"):
+    with pytest.raises(ValueError, match="acquire_cfo"):
         eng.set_cfo(0.0)
     assert eng.cfo_estimates is None
     with pytest.raises(ValueError, match="dequantized"):
@@ -459,7 +461,12 @@ def test_chain_engine_validation_and_later_steps():
     assert eng.step() == [] and eng.chain_state is not None
     eng.reset()
     assert eng.chain_state is None and not eng.frames
-    for fn in (chain.front_chain_init, chain.make_front_chain_fn,
-               chain.FrontState):
-        with pytest.raises(ValueError, match="ROADMAP: A.3"):
-            fn()
+    # The front chain: same carry layout as JAX, runs a silent block.
+    assert chain.FrontState._fields == jchain.FrontState._fields
+    assert chain.FrontChainState._fields == jchain.FrontChainState._fields
+    demod = full_from_ff(cfg, ff_init(cfg, C, "cpu"))
+    st = chain.front_chain_init(fmt, C, demod, freq=np.full(C, 0.01))
+    assert st.front.agc is None and st.front.freq.dtype == torch.float32
+    z = torch.zeros((128 * SPS, C))
+    st, out = chain.make_front_chain_fn(cfg, fmt, CODE_K7, 2)(st, z, z)
+    assert not out.found.any() and isinstance(st, chain.FrontChainState)

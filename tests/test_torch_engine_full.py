@@ -20,6 +20,7 @@ from psk_soft_tpu.runtime.engine import \
     FullKernelBatchEngine as JaxFullKernelBatchEngine
 from psk_soft_tpu.runtime.streams import SRI as JaxSRI
 from psk_soft_tpu_torch.config import DemodConfig
+from psk_soft_tpu_torch.models import blockpsk, full
 from psk_soft_tpu_torch.ops.cuda import demod_kernel
 from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
 from psk_soft_tpu_torch.runtime.native_bank import NativePlaneBank
@@ -214,7 +215,7 @@ def test_engine_reset_restarts_the_stream():
 
 @pytest.mark.parametrize("kw,cfg_kw,match", [
     (dict(ingest_scale=0.5), {}, "int16.*ROADMAP"),
-    (dict(guard_nonfinite=True), {}, "guard_nonfinite.*ROADMAP"),
+    (dict(guard_nonfinite=True, soft_i8=True), {}, "mutually exclusive"),
     ({}, dict(matched_filter="rrc"), "matched filter.*ROADMAP"),
     ({}, dict(timing_interp=True), "timing_interp.*ROADMAP"),
     ({}, dict(phase_avg=5), "phase_avg"),
@@ -228,10 +229,11 @@ def test_engine_rejects_later_options(kw, cfg_kw, match):
 def test_engine_rejects_later_methods_and_bad_input():
     eng = FullKernelBatchEngine(DemodConfig(**KW), C, block_symbols=BLOCK,
                                 device="cpu")
-    with pytest.raises(ValueError, match="configure.*ROADMAP"):
-        eng.configure(DemodConfig(**{**KW, "num_avg": 40}))
-    with pytest.raises(ValueError, match="restore_full_state.*ROADMAP"):
-        eng.restore_full_state(None)
+    eng.configure(DemodConfig(**{**KW, "num_avg": 40}))     # before data
+    assert eng.metrics.reconfigures == 1 and eng.cfg.num_avg == 40
+    with pytest.raises(ValueError, match="config/channel mismatch"):
+        eng.restore_full_state(full.full_from_ff(
+            DemodConfig(**KW), blockpsk.ff_init(DemodConfig(**KW), C, "cpu")))
     z16 = np.zeros((64, C), np.int16)
     with pytest.raises(ValueError, match="int16.*ROADMAP"):
         eng.push_planes(z16, z16)

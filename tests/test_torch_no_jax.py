@@ -1,6 +1,7 @@
 """The port never imports jax or psk_soft_tpu: a fresh interpreter with both
 blocked in sys.modules imports every module of psk_soft_tpu_torch and runs
-one CPU engine step and a CPU ChainEngine warm-up and steady step."""
+one CPU engine step, a configure, a checkpoint round trip, a fused step,
+and CPU ChainEngine warm-up and steady steps, plain and acquire_cfo."""
 
 import os
 import subprocess
@@ -35,6 +36,22 @@ for _ in range(2):
     eng.push_planes(x, x[::-1].copy())
     pkts = eng.step_packets()
 assert eng.steady and pkts["softDecision_dataFloat_out"].data.shape == (128, 64)
+import os, tempfile
+from psk_soft_tpu_torch.utils.checkpoint import load_state, save_state
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "full.npz")
+    save_state(path, eng.full_state, cfg)
+    st, cfg2, _ = load_state(path, "cpu")
+assert cfg2 == cfg and torch.equal(st.planes, eng.full_state.planes)
+eng.restore_full_state(st)
+eng.configure(DemodConfig(sps=4, num_avg=12, constellation_size=4,
+                          phase_avg=12))
+eng.push_planes(x, x[::-1].copy())
+assert eng.step_packets() and eng.metrics.reconfigures == 1
+from psk_soft_tpu_torch.models.fused import fused_init, make_fused_demod_fn
+fst, fout = make_fused_demod_fn(cfg)(fused_init(cfg, 128, "cpu"),
+                                     torch.from_numpy(x), torch.from_numpy(x))
+assert fout.soft.shape == (128, 64) and int(fst.seen) == 10
 from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
 from psk_soft_tpu_torch.ops.fec import CODE_K7
 from psk_soft_tpu_torch.ops.framesync import FrameFormat
@@ -47,6 +64,13 @@ for _ in range(2):
     chain.push_planes(x, x[::-1].copy())
     assert isinstance(chain.step(), list)
 assert chain.chain_state is not None and chain.warmup_symbols == 64
+acq = ChainEngine(cfg, 128, fmt, CODE_K7, CRC16_CCITT, block_symbols=64,
+                  acquire_cfo=True, device="cpu")
+for _ in range(2):
+    x = rng.standard_normal((64 * 4, 128)).astype(np.float32)
+    acq.push_planes(x, x[::-1].copy())
+    assert isinstance(acq.step(), list)
+assert acq.cfo_estimates.shape == (128,)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
