@@ -8,18 +8,24 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. toolchain: the card's name and power limit, torch / CUDA / nvcc
      versions, whether triton imports;
-  2. build kernel B1 (csrc/demod_full.cu) and kernels B2, B3, B4
-     (csrc/viterbi.cu) with nvcc for sm_90a, one nvcc per source, started
-     together;
-  3. kernel against its plain-PyTorch version on the card at 1024 channels
-     x 512 symbols, sps 8, num_avg 100, phase_avg 50: M in {2, 4, 8, 16},
+  2. build kernel B1 (csrc/demod_full.cu), kernels B2, B3, B4
+     (csrc/viterbi.cu) and B5 (csrc/frontend.cu) with nvcc for sm_90a,
+     one nvcc per source, started together;
+  3. kernel B1 (stage A: timing and raw phase; stage B: tracking) against
+     its plain-PyTorch version on the card at 1024 channels x 512
+     symbols, sps 8, num_avg 100, phase_avg 50: M in {2, 4, 8, 16},
      differential, debug ports off, int8 soft, and a two-block carry;
      bits and sample_index equal, phase within 2e-3, soft within 3e-3;
+     then edges (C = 1000; S in {1, 5, 37, 129} over two blocks; sps 40,
+     the wide timing layout), poison (NaN and +inf planted: equal picks,
+     non-finite values where the plain version's are) and noise (a
+     differing sample index only at a near tie, counted);
   4. the engine end to end: NativePlaneBank -> FullKernelBatchEngine on
      the card -> step_packets, 1 warm-up block + 10 steady blocks + a
      flush, against the same engine on the CPU (the plain version);
   5. per-block times with CUDA events (kernel and plain version on the
-     same CUDA tensors) and the engine's end-to-end samples/s;
+     same CUDA tensors), B1's stage times from one torch.profiler pass,
+     and the engine's end-to-end samples/s;
   6. the Viterbi kernels against their plain versions on the card, bits
      and decisions equal, final metrics within 1e-5: B2 at the chain shape
      (K7, n 2, 64 steps, 6144 rows) terminated and not, noisy and hard
@@ -89,20 +95,21 @@ FP32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 
 
 def channels(num_symbols: int, m: int = 4, diff: bool = False,
-             noise: float = 0.01) -> np.ndarray:
-    """(C, num_symbols*SPS) complex64 test bank: a unit PSK impulse at
+             noise: float = 0.01, n_ch: int = C,
+             sps: int = SPS) -> np.ndarray:
+    """(n_ch, num_symbols*sps) complex64 test bank: a unit PSK impulse at
     sample 2 of every symbol (a clear energy peak), a small frequency
     offset, and real Gaussian noise of std ``noise``; channel i draws from
     seed i (tests/test_full_kernel.py's fixture at 1024 channels)."""
-    out = np.empty((C, num_symbols * SPS), np.complex64)
-    rot = np.exp(2j * np.pi * 2e-4 * SPS * np.arange(num_symbols))
-    for i in range(C):
+    out = np.empty((n_ch, num_symbols * sps), np.complex64)
+    rot = np.exp(2j * np.pi * 2e-4 * sps * np.arange(num_symbols))
+    for i in range(n_ch):
         rng = np.random.default_rng(i)
         pts = np.exp(2j * np.pi * rng.integers(0, m, num_symbols) / m)
         if diff:
             pts = np.cumprod(pts)
-        x = np.zeros(num_symbols * SPS, np.complex64)
-        x[2::SPS] = pts * rot
+        x = np.zeros(num_symbols * sps, np.complex64)
+        x[2::sps] = pts * rot
         x += (noise * rng.standard_normal(x.size)).astype(np.complex64)
         out[i] = x
     return out
@@ -112,9 +119,100 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def wrap_diff(a, b, period: float) -> float:
-    d = (a - b).double()
-    return float((d - period * (d / period).round()).abs().max())
+def nonfinite_match(a, b) -> bool:
+    """NaN and inf at the same places, and the infs of the same sign."""
+    import torch
+    ia = a.isinf()
+    return (torch.equal(a.isnan(), b.isnan()) and torch.equal(ia, b.isinf())
+            and torch.equal(a[ia], b[ia]))
+
+
+def finite_err(a, b, period: float | None = None) -> float:
+    """Largest |a - b| over the finite values (modulo ``period`` if
+    given); inf where the non-finite values differ in place."""
+    if not nonfinite_match(a, b):
+        return float("inf")
+    keep = a.isfinite()
+    if not bool(keep.any()):
+        return 0.0
+    d = (a[keep] - b[keep]).double()
+    if period is not None:
+        d = d - period * (d / period).round()
+    return float(d.abs().max())
+
+
+def b1_errors(got, ref, m: int, kw: dict, what: str) -> dict:
+    """Kernel B1's outputs against its plain version's on the same inputs:
+    bits equal, sample index equal (debug ports on), soft within SOFT_TOL
+    (int8 soft: at most one step apart, where the float value sits on a
+    rounding boundary), phase within PHASE_TOL, the carry planes within
+    PHASE_TOL modulo M*2pi; NaN and inf only where the plain version has
+    them.  Returns the errors; raises on a failure."""
+    import torch
+    g_sre, g_sim, g_ph, g_bits, g_idx, g_st = got
+    r_sre, r_sim, r_ph, r_bits, r_idx, r_st = ref
+    if not torch.equal(g_bits, r_bits):
+        raise AssertionError(f"{what}: bits differ at "
+                             f"{int((g_bits != r_bits).sum())} symbols")
+    errs = {}
+    if kw.get("soft_i8_scale") is None:
+        errs["soft"] = max(finite_err(g_sre, r_sre), finite_err(g_sim, r_sim))
+        soft_ok = errs["soft"] <= SOFT_TOL
+    else:
+        d_re = (g_sre.int() - r_sre.int()).abs()
+        d_im = (g_sim.int() - r_sim.int()).abs()
+        errs["i8_steps"] = max(int(d_re.max()), int(d_im.max()))
+        errs["i8_differ"] = int((d_re > 0).sum() + (d_im > 0).sum())
+        soft_ok = errs["i8_steps"] <= 1
+    if kw.get("debug_ports", True):
+        if not torch.equal(g_idx, r_idx):
+            raise AssertionError(f"{what}: sample_index differs at "
+                                 f"{int((g_idx != r_idx).sum())} symbols")
+        errs["phase"] = finite_err(g_ph, r_ph)
+    elif g_ph is not None or g_idx is not None:
+        raise AssertionError(f"{what}: debug ports off but planes returned")
+    errs["planes"] = finite_err(g_st, r_st, 2 * np.pi * m)
+    if (not soft_ok or errs.get("phase", 0.0) > PHASE_TOL
+            or errs["planes"] > PHASE_TOL):
+        raise AssertionError(f"{what}: {errs}")
+    return errs
+
+
+def dev_us(e) -> float:
+    """Device time of a torch.profiler key_averages() row, in us."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+B1_STAGES = {"stage_a_timing": "demod_timing", "stage_b_track": "demod_track",
+             "first_bad_memset": "Memset"}
+
+
+def b1_stage_ms(torch, fn, args_list, iters: int = 20) -> dict:
+    """One torch.profiler pass over ``iters`` calls of B1's wrapper: the
+    device time of each of its launches per call, read by kernel name
+    (stage A, stage B, the memset of the non-finite record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    out = dict.fromkeys(B1_STAGES, 0.0)
+    for e in prof.key_averages():
+        if e.self_cpu_time_total != 0:
+            continue
+        for stage, name in B1_STAGES.items():
+            if name in e.key:
+                out[stage] += dev_us(e) / 1e3 / iters
+    if not out["stage_a_timing"] or not out["stage_b_track"]:
+        raise AssertionError(f"profiler shows no device time for B1's "
+                             f"stages: {out}")
+    return out
 
 
 def profile_engine(feed, card: str, what: str = "engine, depth 0",
@@ -134,10 +232,6 @@ def profile_engine(feed, card: str, what: str = "engine, depth 0",
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # Device-side rows (kernels, memcpys) have no CPU time; a CPU op's row
     # repeats the device time of what it launched, and the profiler's own
     # buffer requests are left out.
@@ -155,6 +249,183 @@ def profile_engine(feed, card: str, what: str = "engine, depth 0",
                     "top_device_ms_per_block": {
                         e.key: dev_us(e) / 1e3 / blocks for e in top},
                     "card": card}))
+
+
+def b1_warm(torch, dev, n_ch: int, sps: int, num_avg: int, symbols: int,
+            m: int = 4, diff: bool = False):
+    """A test bank warmed up through blockpsk for WARM symbols: returns
+    (FullState carry, x_re, x_im) with ``symbols`` symbols of (rows, n_ch)
+    planes after the warm-up."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models import blockpsk, full
+
+    cfg = DemodConfig(sps=sps, num_avg=num_avg, constellation_size=m,
+                      phase_avg=PHASE_AVG, differential=diff)
+    xs = torch.from_numpy(channels(WARM + symbols, m, diff, n_ch=n_ch,
+                                   sps=sps)).to(dev)
+    st, _ = blockpsk.demod_block_ff(cfg, blockpsk.ff_init(cfg, n_ch, dev),
+                                    xs[:, :WARM * sps])
+    run = xs[:, WARM * sps:]
+    return (full.full_from_ff(cfg, st), run.real.T.contiguous(),
+            run.imag.T.contiguous())
+
+
+def b1_blocks(torch, case: dict, state, x_re, x_im, n_sym: int,
+              blocks: int, kw: dict, log_it: bool = True):
+    """Kernel B1 and its plain version through ``blocks`` consecutive
+    n_sym-symbol blocks from one carry, each on its own output of the
+    block before (carry planes and window rows), held by b1_errors after
+    every block.  The launch plan's shared memory must equal the
+    library's own count.  Returns ([(got, ref) per block], errors)."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+
+    lib = dk.load_library()[0]
+    sps, m = kw["sps"], kw["m"]
+    n_ch = x_re.shape[1]
+    plan = dk.launch_plan(n_ch, n_sym, sps, kw["phase_avg"])
+    lib_smem = tuple(lib.psk_demod_full_smem(stage, sps, kw["phase_avg"],
+                                             plan.chunk) for stage in (0, 1))
+    if lib_smem != (plan.timing_smem, plan.track_smem):
+        raise AssertionError(f"{case}: plan shared memory "
+                             f"{(plan.timing_smem, plan.track_smem)}, "
+                             f"library {lib_smem}")
+    keep = (kw["num_avg"] - 1) * sps
+    win = [(state.win_re, state.win_im)] * 2
+    carry = [state.planes, state.planes]
+    errs, outs = {}, []
+    for blk in range(blocks):
+        rows = slice(blk * n_sym * sps, (blk + 1) * n_sym * sps)
+        xr, xi = x_re[rows].contiguous(), x_im[rows].contiguous()
+        got = dk.demod_full_tm(*win[0], xr, xi, carry[0], **kw)
+        ref = dk.demod_full_tm_ref(*win[1], xr, xi, carry[1], **kw)
+        torch.cuda.synchronize()
+        for name, v in b1_errors(got, ref, m, kw,
+                                 f"{case} block {blk}").items():
+            errs[f"{name}{blk}"] = v
+        outs.append((got, ref))
+        win = [(torch.cat([win[0][0], xr])[-keep:].contiguous(),
+                torch.cat([win[0][1], xi])[-keep:].contiguous())] * 2
+        carry = [got[5], ref[5]]
+    if log_it:
+        log(json.dumps({"phase": "kernel_vs_plain", **case,
+                        "channels": n_ch, "symbols": n_sym,
+                        "blocks": blocks, "chunk": plan.chunk,
+                        "tile": plan.tile,
+                        "timing_layout": plan.timing_layout,
+                        "bits_equal": True,
+                        "sample_index_equal": kw.get("debug_ports", True),
+                        **errs}))
+    return outs, errs
+
+
+def b1_phase(torch, dev) -> float:
+    """Phase 3: kernel B1 against its plain version through the wrapper,
+    from the carry of a real warm-up, two blocks each unless said.
+    Modes at 1024 x 512: M in {2, 4, 8, 16}, differential, debug ports
+    off, int8 soft.  (a) Edges: C = 1000 (not a multiple of any channel
+    group), QPSK and differential, one block; S in {1, 5, 37, 129} at C =
+    1024 (S < 8 and S < n1 reach into the carry's trend and FIR rows);
+    sps 40 (stage A's wide layout) at C = 256, num_avg 20.  (b) A NaN at
+    channel 11's block symbol 300 and +inf at channel 23's symbol 100:
+    sample index and bits equal on every channel, NaN and inf where the
+    plain version's are.  (c) One pure-noise block: a differing sample
+    index only where the plain version's top two window sums are within
+    NEAR_TIE_REL, counted (bits are counted, not held: on noise a rounding
+    difference can flip a sign or a wrap count).  Returns the largest soft
+    or phase error."""
+    from psk_soft_tpu_torch.ops import timing
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+
+    worst = 0.0
+
+    def check(case, state, x_re, x_im, n_sym, blocks, log_it=True, **kw):
+        nonlocal worst
+        kw = dict(dict(sps=SPS, num_avg=NUM_AVG, phase_avg=PHASE_AVG, m=4,
+                       diff=False), **kw)
+        outs, errs = b1_blocks(torch, case, state, x_re, x_im, n_sym,
+                               blocks, kw, log_it)
+        worst = max([worst] + [v for k, v in errs.items()
+                               if k.startswith(("soft", "phase"))])
+        return outs
+
+    modes = [dict(m=4, diff=False), dict(m=2, diff=False),
+             dict(m=8, diff=False), dict(m=16, diff=False),
+             dict(m=4, diff=True),
+             dict(m=4, diff=False, debug_ports=False),
+             dict(m=4, diff=False, soft_i8_scale=100.0)]
+    inputs = {}
+    for mode in modes:
+        key = (mode["m"], mode["diff"])
+        if key not in inputs:
+            inputs[key] = b1_warm(torch, dev, C, SPS, NUM_AVG, 2 * S, *key)
+        check({"mode": mode}, *inputs[key], S, 2, **mode)
+    del inputs
+
+    # --- (a) edges ---
+    for diff in (False, True):
+        st, xr, xi = b1_warm(torch, dev, 1000, SPS, NUM_AVG, S, diff=diff)
+        check({"case": "C=1000", "diff": diff}, st, xr, xi, S, 1, diff=diff)
+    st, xr, xi = b1_warm(torch, dev, C, SPS, NUM_AVG, 2 * 129)
+    for n_sym in (1, 5, 37, 129):
+        check({"case": f"S={n_sym}"}, st, xr, xi, n_sym, 2)
+    st, xr, xi = b1_warm(torch, dev, 256, 40, 20, 2 * S)
+    check({"case": "sps=40", "num_avg": 20}, st, xr, xi, S, 2, sps=40,
+          num_avg=20)
+
+    # --- (b) poison: NaN at channel 11's symbol 300, +inf at 23's 100 ---
+    st, xr, xi = b1_warm(torch, dev, C, SPS, NUM_AVG, S)
+    xr[300 * SPS + 5, 11] = float("nan")
+    xi[100 * SPS + 3, 23] = float("inf")
+    (got, ref), = check({"case": "poison"}, st, xr, xi, S, 1, log_it=False)
+    bad = torch.nonzero(~got[0].isfinite().all(dim=0)).flatten().tolist()
+    if bad != [11, 23]:
+        raise AssertionError(f"poison: non-finite soft on channels {bad}")
+    # From the first output symbol whose window reaches the sample on,
+    # the poisoned bin is the pick (first NaN, or inf then NaN).
+    if not (bool((ref[4][300:, 11] == 5).all())
+            and bool((ref[4][100:, 23] == 3).all())):
+        raise AssertionError("poison: the plain version does not pick the "
+                             "poisoned bins")
+    log(json.dumps({"phase": "kernel_vs_plain", "case": "poison",
+                    "nan": [11, 300], "inf": [23, 100],
+                    "nonfinite_soft_channels": bad,
+                    "nonfinite_soft_symbols": int((~got[0].isfinite())
+                                                  .sum()),
+                    "bits_equal": True, "sample_index_equal": True,
+                    "nonfinite_where_plain": True}))
+
+    # --- (c) noise: near ties only ---
+    gen = torch.Generator(device=dev).manual_seed(3)
+    keep = (NUM_AVG - 1) * SPS
+    rows = keep + S * SPS
+    re = torch.randn((rows, C), generator=gen, device=dev)
+    im = torch.randn((rows, C), generator=gen, device=dev)
+    kw = dict(sps=SPS, num_avg=NUM_AVG, phase_avg=PHASE_AVG, m=4,
+              diff=False)
+    args = (re[:keep], im[:keep], re[keep:], im[keep:], st.planes)
+    got = dk.demod_full_tm(*args, **kw)
+    ref = dk.demod_full_tm_ref(*args, **kw)
+    e = (re * re + im * im).reshape(S + NUM_AVG - 1, SPS, C).permute(2, 0, 1)
+    top2 = timing.windowed_bin_sums(e, NUM_AVG).topk(2, dim=-1).values
+    gap = ((top2[..., 0] - top2[..., 1]) / top2[..., 0]).T       # (S, C)
+    torch.cuda.synchronize()
+    differ = got[4] != ref[4]
+    n_differ = int(differ.sum())
+    widest = float(gap[differ].max()) if n_differ else 0.0
+    if widest >= NEAR_TIE_REL:
+        raise AssertionError(f"B1 on noise: {n_differ} indices differ, "
+                             f"widest gap {widest} (near-tie bound "
+                             f"{NEAR_TIE_REL})")
+    log(json.dumps({"phase": "kernel_vs_plain", "case": "noise",
+                    "channels": C, "symbols": S,
+                    "noise_index_differ": n_differ,
+                    "noise_outputs": S * C,
+                    "channels_with_a_difference": int(differ.any(dim=0)
+                                                      .sum()),
+                    "bits_differ": int((got[3] != ref[3]).sum()),
+                    "noise_widest_relative_gap": widest,
+                    "near_tie_bound": NEAR_TIE_REL}))
+    return worst
 
 
 def viterbi_llrs(code, rows: int, n_info: int, hard: bool,
@@ -957,77 +1228,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
-    # --- phase 3: kernel vs plain version, every mode, 1024 x 512 ---
-    modes = [dict(m=4, diff=False), dict(m=2, diff=False),
-             dict(m=8, diff=False), dict(m=16, diff=False),
-             dict(m=4, diff=True),
-             dict(m=4, diff=False, debug_ports=False),
-             dict(m=4, diff=False, soft_i8_scale=100.0)]
-    max_err = 0.0
-    inputs = {}
-    for mode in modes:
-        m, diff = mode["m"], mode["diff"]
-        cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=m,
-                          phase_avg=PHASE_AVG, differential=diff)
-        if (m, diff) not in inputs:
-            xs = torch.from_numpy(channels(WARM + 2 * S, m, diff)).to(dev)
-            st, _ = blockpsk.demod_block_ff(
-                cfg, blockpsk.ff_init(cfg, C, dev), xs[:, :WARM * SPS])
-            inputs[(m, diff)] = (full.full_from_ff(cfg, st),
-                                 xs[:, WARM * SPS:])
-        state, run = inputs[(m, diff)]
-        kw = dict(sps=SPS, num_avg=NUM_AVG, phase_avg=PHASE_AVG, m=m,
-                  diff=diff, soft_i8_scale=mode.get("soft_i8_scale"),
-                  debug_ports=mode.get("debug_ports", True))
-        errs = {}
-        carry = [state.planes, state.planes]
-        win = [(state.win_re, state.win_im)] * 2
-        for blk in range(2):                   # two blocks: carry checked
-            x = run[:, blk * S * SPS:(blk + 1) * S * SPS]
-            x_re = x.real.T.contiguous()
-            x_im = x.imag.T.contiguous()
-            got = demod_full_tm(*win[0], x_re, x_im, carry[0], **kw)
-            ref = demod_full_tm_ref(*win[1], x_re, x_im, carry[1], **kw)
-            torch.cuda.synchronize()
-            keep = (NUM_AVG - 1) * SPS
-            win = [(x_re[-keep:], x_im[-keep:])] * 2
-            carry = [got[5], ref[5]]
-            g_sre, g_sim, g_ph, g_bits, g_idx, _ = got
-            r_sre, r_sim, r_ph, r_bits, r_idx, _ = ref
-            if not torch.equal(g_bits, r_bits):
-                raise AssertionError(f"{mode} block {blk}: bits differ at "
-                                     f"{int((g_bits != r_bits).sum())} "
-                                     f"symbols")
-            if kw["soft_i8_scale"] is None:
-                errs[f"soft{blk}"] = max(float((g_sre - r_sre).abs().max()),
-                                         float((g_sim - r_sim).abs().max()))
-                soft_ok = errs[f"soft{blk}"] <= SOFT_TOL
-            else:
-                # int8 planes: equal, or one step apart where the float
-                # value sits on a rounding boundary.
-                d_re = (g_sre.int() - r_sre.int()).abs()
-                d_im = (g_sim.int() - r_sim.int()).abs()
-                errs[f"i8_steps{blk}"] = max(int(d_re.max()), int(d_im.max()))
-                errs[f"i8_differ{blk}"] = int((d_re > 0).sum()
-                                              + (d_im > 0).sum())
-                soft_ok = errs[f"i8_steps{blk}"] <= 1
-            if kw["debug_ports"]:
-                if not torch.equal(g_idx, r_idx):
-                    raise AssertionError(f"{mode} block {blk}: sample_index "
-                                         f"differs")
-                errs[f"phase{blk}"] = float((g_ph - r_ph).abs().max())
-            else:
-                assert g_ph is None and g_idx is None
-            errs[f"planes{blk}"] = wrap_diff(got[5], ref[5], 2 * np.pi * m)
-            if (not soft_ok or errs.get(f"phase{blk}", 0) > PHASE_TOL
-                    or errs[f"planes{blk}"] > PHASE_TOL):
-                raise AssertionError(f"{mode} block {blk}: {errs}")
-        log(json.dumps({"phase": "kernel_vs_plain", "mode": mode,
-                        "bits_equal": True,
-                        "sample_index_equal": kw["debug_ports"], **errs}))
-        max_err = max([max_err] + [v for k, v in errs.items()
-                                   if k.startswith(("soft", "phase"))])
-    del inputs
+    # --- phase 3: B1 vs its plain version: modes, edges, poison, noise
+    max_err = b1_phase(torch, dev)
 
     # --- phase 4: the engine end to end, card vs CPU ---
     cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
@@ -1159,10 +1361,11 @@ def main() -> int:
         k2 = event_ms(k_fn, args)
         p2 = event_ms(r_fn, args)
         timings[debug] = dict(kernel_ms=[k1, k2], plain_ms=[p1, p2])
+        stages = b1_stage_ms(torch, k_fn, args)
         log(json.dumps({"phase": "timing", "what": "demod_full_tm block",
                         "channels": C, "symbols": S, "sps": SPS,
                         "debug_ports": debug, "kernel_ms": [k1, k2],
-                        "plain_ms": [p1, p2],
+                        "plain_ms": [p1, p2], "stage_ms": stages,
                         "kernel_samples_per_s": need * C / (min(k1, k2)
                                                             * 1e-3),
                         "card": card}))

@@ -1,7 +1,7 @@
 // Kernel B1 for Hopper (sm_90a): the fused steady-state PSK demod.
 //
 // Replaces the Pallas kernel psk_soft_tpu/ops/pallas/demod_kernel.py
-// (demod_full_tm, body _kernel).  One pass over a block of time-major
+// (demod_full_tm, body _kernel).  One call over a block of time-major
 // (T, C) float32 I/Q planes computes, per channel and per symbol:
 //   windowed per-bin energy over num_avg symbols -> first-max argmax ->
 //   decision-sample pick -> M-th power by log2(M) squarings + atan2f ->
@@ -17,36 +17,61 @@
 //   rows misc+0 .. misc+3   ang_prev, unwrap_acc, last decision re, im
 //   rows misc+4 .. and pad  passed through unchanged
 //
-// Design (first version: simple and right).  One thread owns one channel
-// and walks the block's S symbols in order, so every sequential carry
-// (window sums, trend ring, unwrap accumulator, FIR history, previous
-// decision) stays in registers or in the thread's column of shared memory.
-// A warp covers 32 neighbouring channels, so each load of one time-major
-// row is one coalesced 128-byte segment.  The timing window is read
-// through two pointers: row r of [window | block] comes from `win` when
-// r < (num_avg-1)*sps and from `x` otherwise, so the rolling-window mode
-// is just a view of the previous block's last rows (no concatenation);
-// that reader and the first-max rule (NaN counts as the maximum, as in the
-// plain version) are shared with kernel B5 through timing.cuh.
-// The window sums slide (add the entering symbol's energy, subtract the
-// leaving one's, re-read from L2) instead of the Pallas kernel's cumsum
-// per time tile.  The phase-history re-wrap happens once, at the end of
-// the block, from the last unwrapped phase (u_last).
+// Design: two kernels on the caller's stream, both parallel over symbols.
 //
-// What bounds it on an H100: the input is 2 * 4 bytes * T * C (33.5 MB per
-// 1024 x 512-symbol block at sps 8), about 10 us of HBM time at 3.35 TB/s.
-// But one thread per channel gives only C threads (1024: 32 warps on 32 of
-// the 132 SMs, one warp per SM), so the kernel is bound by the latency of
-// each channel's dependent chain (global loads, atan2f/sincosf, the
-// phase_avg-tap FIR), not by bytes.  Parallelising across symbols (a
-// per-(symbol, channel) phase for energy, argmax, pick and M-th power,
-// then a per-channel scan) is the next step.
+// Stage A (demod_timing_*_kernel), parallel over (channel, symbol tile):
+// kernel B5's tile loops (timing.cuh: 32 channels by sps warps, sums slid
+// within a tile, the first-max argmax and the gather by one warp per
+// symbol after a shared-memory exchange; one thread per (channel, tile)
+// for sps > 32), then per (symbol, channel) the M-th power and raw =
+// atan2f.  It writes sel_re, sel_im, raw to (S, C) scratch and the sample
+// index to its output plane.  Every sample it adds to a window sum is
+// checked: the first NaN and the first +inf energy symbol of each
+// (bin, channel) go to `first_bad` with atomicMin (a branch never taken on
+// finite input).
+//
+// Stage B (demod_track_kernel), one block per group of kGroup channels
+// walking the block in chunks of `chunk` symbols, one thread per (symbol,
+// channel) of a chunk.  All symbols of a chunk are computed at once: the
+// 9-tap trend from the chunk's raws and the 8 before them, ang_t, the wrap
+// count d[o] = rint((ang_t[o] - ang_t[o-1]) / 2pi), then u, the FIR over
+// [u history | u], derotation, slicing and the outputs.  The only serial
+// step is the prefix sum of d: a warp-shuffle scan inside a chunk, the
+// warps' totals added through shared memory, the channel's running sum
+// carried from chunk to chunk.  The scan is in float32 (exact for the
+// integers it adds), so a NaN wrap count makes every later u of its
+// channel NaN, as the plain version's cumsum does.  The trend, u and
+// decision histories live in shared memory, (halo + chunk) rows per
+// channel in two buffers used in turn, so shared memory does not grow
+// with S.  The block that owns a channel writes its carry after the last
+// chunk, with the M*2pi re-wrap from the last unwrapped phase.
+//
+// Non-finite samples.  The plain version takes window sums as cumsum
+// differences from the start of [window | block], so a NaN energy at
+// symbol t in bin j makes that bin's sum NaN for every output symbol o
+// with o + num_avg - 1 >= t, and a +inf makes it inf while the window
+// holds it and NaN once it has left (inf - inf).  A tile that starts its
+// sums fresh would forget such a sample.  Stage B keeps the plain rule:
+// on a channel whose first non-finite symbol the window has reached, it
+// derives each bin's state from `first_bad` (NaN, inf or finite), takes
+// the first NaN bin, else the first inf bin, else keeps stage A's pick,
+// and re-gathers the sample and its raw phase.  Finite channels skip it.
+//
+// What bounds it on an H100: the function must move about 45 MB per
+// 1024 x 512-symbol block at sps 8 (33.5 MB of block planes, the 6.5 MB
+// window, soft and bits out), about 14 us of HBM time.  Stage A re-reads
+// each tile's first window from L2 (as B5 does) and stage B walks S /
+// chunk chunks with four barriers each, so the pair is bound by L2 traffic
+// and by the latency of those chunk steps, not by HBM bytes.  The earlier
+// design (one thread walking all S symbols of a channel, 1024 threads in
+// all) was bound by the latency of each symbol's dependent chain.
 //
 // Not handled here (the Python wrapper raises before launching): int16
 // ingest, fractional timing, an in-kernel matched filter, mixed per-channel
 // modes.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 #include "timing.cuh"
@@ -57,13 +82,36 @@ constexpr int kTrend = 9;               // UNWRAP_TREND_LEN
 constexpr int kTrend1 = kTrend - 1;
 constexpr float kTwoPi = 6.2831853071795865f;
 constexpr float kQuarterPi = 0.7853981633974483f;
-constexpr int kThreads = 32;            // channels per block (one warp)
+constexpr int kGroup = 8;               // channels per stage-B block
+constexpr int kSymsPerWarp = 32 / kGroup;
+constexpr int kWideThreads = 32;        // stage A threads a block, sps > 32
+constexpr int kMaxThreads = 1024;
+
+__device__ __forceinline__ float mth_phase(float re, float im, int m) {
+  float zr = re, zi = im;
+  for (int mm = m; mm > 1; mm >>= 1) {
+    const float nr = zr * zr - zi * zi;
+    const float ni = 2.f * zr * zi;
+    zr = nr;
+    zi = ni;
+  }
+  return atan2f(zi, zr);
+}
+
+__device__ __forceinline__ void store_code(void* plane, int pack,
+                                           int64_t i, int v) {
+  if (pack)
+    static_cast<int8_t*>(plane)[i] = (int8_t)v;
+  else
+    static_cast<int32_t*>(plane)[i] = v;
+}
 
 struct Params {
-  const float* win_re;
-  const float* win_im;
-  const float* x_re;
-  const float* x_im;
+  psk::TwoPlanes in;
+  float* sel_re;          // (S, C) scratch: decision samples
+  float* sel_im;
+  float* raw;             // (S, C) scratch: atan2 of the M-th power
+  int* first_bad;         // (2, sps, C): first NaN / +inf energy symbol
   const float* state_in;
   float* state_out;
   const float* fir_w;     // phase_avg endpoint-fit weights, oldest first
@@ -72,212 +120,366 @@ struct Params {
   float* phase;           // (S, C) float32, or null (debug ports off)
   void* bits;             // (S, C) int8 when pack_out, else int32
   void* idx;              // (S, C) like bits, or null (debug ports off)
-  int64_t win_rows;       // (num_avg - 1) * sps
-  int C, S, sps, num_avg, phase_avg, m, diff, pack_out, soft_i8;
-  int state_rows;
+  int C, S, sps, num_avg, n1, m, diff, pack_out, soft_i8, state_rows;
+  int tile, chunk;
   float soft_scale;
   float m_scale;          // m / (2 pi), rounded once to float
 };
 
-__global__ void __launch_bounds__(kThreads)
-demod_full_kernel(const Params p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= p.C) return;
-  const int C = p.C;
-  const int sps = p.sps;
-  const int n1 = p.phase_avg - 1;
-  const int misc = n1 + 2 * kTrend1;
-  const int64_t wrows = p.win_rows;
+// ---- stage A ----
 
-  // Per-thread columns of shared memory: window sums W[sps], then the
-  // ring of the last n1 unwrapped phases.  Element i of a column sits at
-  // [i * blockDim.x + threadIdx.x], so a warp's accesses never conflict.
-  extern __shared__ float smem[];
-  const int stride = blockDim.x;
-  float* wsum = smem + threadIdx.x;
-  float* uring = smem + sps * stride + threadIdx.x;
-
-  const psk::TwoPlanes in{p.win_re, p.win_im, p.x_re, p.x_im, wrows, C};
-  auto energy = [&](int64_t r) { return in.energy(r, c); };
-
-  // --- carries in ---
-  for (int r = 0; r < p.state_rows; ++r)
-    p.state_out[r * C + c] = p.state_in[r * C + c];
-  for (int i = 0; i < n1; ++i) uring[i * stride] = p.state_in[i * C + c];
-  float cre[kTrend1], cim[kTrend1];
-#pragma unroll
-  for (int i = 0; i < kTrend1; ++i) {
-    cre[i] = p.state_in[(n1 + i) * C + c];
-    cim[i] = p.state_in[(n1 + kTrend1 + i) * C + c];
+struct TimingEmit {
+  const Params& p;
+  __device__ __forceinline__ void operator()(int o, int c, int b) const {
+    float re, im;
+    p.in.sample((int64_t)o * p.sps + b, c, re, im);
+    const int64_t i = (int64_t)o * p.C + c;
+    p.sel_re[i] = re;
+    p.sel_im[i] = im;
+    p.raw[i] = mth_phase(re, im, p.m);
+    if (p.idx) store_code(p.idx, p.pack_out, i, b);
   }
-  float ang_prev = p.state_in[misc * C + c];
-  const float acc = p.state_in[(misc + 1) * C + c];
-  float prev_re = p.state_in[(misc + 2) * C + c];
-  float prev_im = p.state_in[(misc + 3) * C + c];
+};
 
-  // --- window sums of output symbol 0: symbols [0, num_avg) ---
-  for (int j = 0; j < sps; ++j) wsum[j * stride] = 0.f;
-  for (int t = 0; t < p.num_avg; ++t)
-    for (int j = 0; j < sps; ++j)
-      wsum[j * stride] += energy((int64_t)t * sps + j);
-
-  int pos = 0;            // ring slot of the oldest u
-  float cum = 0.f;        // unwrap wraps since the block start
-  float u = 0.f;
-  for (int o = 0; o < p.S; ++o) {
-    // C2 timing: slide the window to symbols [o, o + num_avg), first max.
-    if (o > 0) {
-      const int64_t r_in = (int64_t)(o + p.num_avg - 1) * sps;
-      const int64_t r_out = (int64_t)(o - 1) * sps;
-      for (int j = 0; j < sps; ++j)
-        wsum[j * stride] = wsum[j * stride] + energy(r_in + j)
-                           - energy(r_out + j);
+struct NoteNonFinite {
+  const Params& p;
+  __device__ __forceinline__ void operator()(float e, int t, int j,
+                                             int c) const {
+    if (!(e <= FLT_MAX)) {              // NaN or +inf (energy is >= 0)
+      const int kind = e != e ? 0 : 1;
+      atomicMin(p.first_bad + ((int64_t)kind * p.sps + j) * p.C + c, t);
     }
-    int b = 0;
-    float best = wsum[0];
-    for (int j = 1; j < sps; ++j) {
-      const float v = wsum[j * stride];
-      if (psk::takes_max(v, best)) { best = v; b = j; }
-    }
-    float sel_re, sel_im;
-    in.sample((int64_t)o * sps + b, c, sel_re, sel_im);
+  }
+};
 
-    // C3: M-th power phase.
-    float zr = sel_re, zi = sel_im;
-    for (int mm = p.m; mm > 1; mm >>= 1) {
-      const float nr = zr * zr - zi * zi;
-      const float ni = 2.f * zr * zi;
-      zr = nr;
-      zi = ni;
-    }
-    const float raw = atan2f(zi, zr);
+__global__ void __launch_bounds__(psk::kTimingLanes * psk::kTimingMaxBinsSps)
+demod_timing_bins_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float wbuf[];
+  psk::timing_tile_bins(p.in, p.S, p.sps, p.num_avg, p.tile, wbuf,
+                        TimingEmit{p}, NoteNonFinite{p});
+}
 
-    // Trend: complex moving average over the last kTrend raw phases.
+__global__ void __launch_bounds__(kWideThreads)
+demod_timing_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float smem[];
+  psk::timing_tile_wide(p.in, p.S, p.sps, p.num_avg, p.tile, smem,
+                        TimingEmit{p}, NoteNonFinite{p});
+}
+
+// ---- stage B ----
+
+// The plain version's rule for a channel whose window has reached a
+// non-finite sample: bin j's sum at output symbol o is NaN once the
+// window's newest symbol reaches a NaN (o + num_avg - 1 >= tn) or an inf
+// has left it (o > ti), inf while it holds an inf, else finite.  The first
+// NaN bin, else the first inf bin, is the maximum; with neither, stage A's
+// pick stands.  On a change, re-gather the sample and its raw phase.
+__device__ void apply_nonfinite_rule(const Params& p, int o, int c,
+                                     float& sre, float& sim, float& raw) {
+  const int hi = o + p.num_avg - 1;
+  int b = -1;
+  for (int j = 0; j < p.sps; ++j) {
+    const int tn = p.first_bad[(int64_t)j * p.C + c];
+    const int ti = p.first_bad[((int64_t)p.sps + j) * p.C + c];
+    if (hi >= tn || o > ti) { b = j; break; }
+    if (b < 0 && hi >= ti) b = j + p.sps;   // first inf bin, kept unless NaN
+  }
+  if (b < 0) return;
+  if (b >= p.sps) b -= p.sps;
+  p.in.sample((int64_t)o * p.sps + b, c, sre, sim);
+  raw = mth_phase(sre, sim, p.m);
+  if (p.idx) store_code(p.idx, p.pack_out, (int64_t)o * p.C + c, b);
+}
+
+// Floats of one history buffer: rows of kGroup channels each, for u
+// (n1 + chunk), trend cos and sin (8 + chunk each), ang_t, decision re
+// and im (1 + chunk each).  Row h + k holds symbol base + k of a chunk;
+// rows below h are the history before it.
+__host__ __device__ __forceinline__ int track_buffer_floats(int n1,
+                                                            int chunk) {
+  return ((n1 + chunk) + 2 * (kTrend1 + chunk) + 3 * (1 + chunk)) * kGroup;
+}
+
+__host__ __device__ __forceinline__ int64_t track_smem_bytes(int n1,
+                                                             int chunk) {
+  return (int64_t)sizeof(float)
+         * (2 * track_buffer_floats(n1, chunk) + (n1 + 1)
+            + (chunk / kSymsPerWarp) * kGroup + 3 * kGroup);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+demod_track_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float sm[];
+  const int K = p.chunk;
+  const int n1 = p.n1;
+  const int C = p.C;
+  const int nt = blockDim.x;            // K * kGroup
+  const int tid = threadIdx.x;
+  const int g = tid % kGroup;           // channel within the group
+  const int k = tid / kGroup;           // symbol within the chunk
+  const int c0 = blockIdx.x * kGroup;
+  const int c = c0 + g;
+  const bool live = c < C;
+  const int misc = n1 + 2 * kTrend1;
+
+  // Shared memory: two history buffers, the FIR weights, the scan's warp
+  // totals, and per channel the running wrap count, unwrap_acc and the
+  // first non-finite symbol.
+  const int bsz = track_buffer_floats(n1, K);
+  const int offCR = (n1 + K) * kGroup;
+  const int offCI = offCR + (kTrend1 + K) * kGroup;
+  const int offA = offCI + (kTrend1 + K) * kGroup;
+  const int offPR = offA + (1 + K) * kGroup;
+  const int offPI = offPR + (1 + K) * kGroup;
+  float* const bufs = sm;
+  float* const w = sm + 2 * bsz;
+  float* const tot = w + n1 + 1;
+  float* const cum_base = tot + (K / kSymsPerWarp) * kGroup;
+  float* const acc = cum_base + kGroup;
+  int* const first = reinterpret_cast<int*>(acc + kGroup);
+
+  // --- carries in: histories of buffer 0, weights, first bad symbol ---
+  for (int i = tid; i <= n1; i += nt) w[i] = p.fir_w[i];
+  auto carry = [&](int r, int gg) {
+    return c0 + gg < C ? p.state_in[(int64_t)r * C + c0 + gg] : 0.f;
+  };
+  for (int i = tid; i < n1 * kGroup; i += nt)
+    bufs[i] = carry(i / kGroup, i % kGroup);
+  for (int i = tid; i < kTrend1 * kGroup; i += nt) {
+    bufs[offCR + i] = carry(n1 + i / kGroup, i % kGroup);
+    bufs[offCI + i] = carry(n1 + kTrend1 + i / kGroup, i % kGroup);
+  }
+  if (tid < kGroup) {
+    bufs[offA + tid] = carry(misc, tid);
+    bufs[offPR + tid] = carry(misc + 2, tid);
+    bufs[offPI + tid] = carry(misc + 3, tid);
+    acc[tid] = carry(misc + 1, tid);
+    cum_base[tid] = 0.f;
+    first[tid] = INT32_MAX;
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * p.sps * kGroup; i += nt) {
+    const int gg = i % kGroup;
+    if (c0 + gg < C)
+      atomicMin(first + gg, p.first_bad[(int64_t)(i / kGroup) * C + c0 + gg]);
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int cur = 0;
+  for (int base = 0; base < p.S; base += K) {
+    const int nk = min(K, p.S - base);
+    float* const B = bufs + cur * bsz;
+    float* const N = bufs + (cur ^ 1) * bsz;
+    const int o = base + k;
+    const bool act = live && k < nk;
+
+    // 1. Stage A's terms; the non-finite rule where the window has
+    // reached a non-finite sample.
+    float sre = 0.f, sim = 0.f, raw = 0.f;
+    if (act) {
+      const int64_t i = (int64_t)o * C + c;
+      sre = p.sel_re[i];
+      sim = p.sel_im[i];
+      raw = p.raw[i];
+      if (o + p.num_avg - 1 >= first[g])
+        apply_nonfinite_rule(p, o, c, sre, sim, raw);
+    }
     float c_re, c_im;
     sincosf(raw, &c_im, &c_re);
+    B[offCR + (kTrend1 + k) * kGroup + g] = c_re;
+    B[offCI + (kTrend1 + k) * kGroup + g] = c_im;
+    B[offPR + (1 + k) * kGroup + g] = sre;
+    B[offPI + (1 + k) * kGroup + g] = sim;
+    __syncthreads();
+
+    // 2. Trend: the 8 previous cos/sin (oldest first), then the current.
     float t_re = 0.f, t_im = 0.f;
 #pragma unroll
-    for (int i = 0; i < kTrend1; ++i) { t_re += cre[i]; t_im += cim[i]; }
+    for (int i = 0; i < kTrend1; ++i) {
+      t_re += B[offCR + (k + i) * kGroup + g];
+      t_im += B[offCI + (k + i) * kGroup + g];
+    }
     t_re += c_re;
     t_im += c_im;
-#pragma unroll
-    for (int i = 0; i < kTrend1 - 1; ++i) {
-      cre[i] = cre[i + 1];
-      cim[i] = cim[i + 1];
-    }
-    cre[kTrend1 - 1] = c_re;
-    cim[kTrend1 - 1] = c_im;
     const float ang_t = atan2f(t_im, t_re);
+    B[offA + (1 + k) * kGroup + g] = ang_t;
+    __syncthreads();
 
-    // Prefix unwrap of the trend (round half to even, like jnp.round),
-    // residual re-attached in (-pi, pi].
-    cum += rintf((ang_t - ang_prev) / kTwoPi);
-    ang_prev = ang_t;
-    const float t_unw = ang_t + acc - kTwoPi * cum;
+    // 3. Wrap counts (round half to even, like torch.round) and their
+    // prefix sum: shuffles across the warp's symbols, then the totals of
+    // the earlier warps and of the earlier chunks.
+    float v = k < nk ? rintf((ang_t - B[offA + k * kGroup + g]) / kTwoPi)
+                     : 0.f;
+#pragma unroll
+    for (int off = kGroup; off < 32; off <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += t;
+    }
+    if (lane >= 32 - kGroup) tot[warp * kGroup + g] = v;
+    __syncthreads();
+    float cum = cum_base[g];
+    for (int q = 0; q < warp; ++q) cum += tot[q * kGroup + g];
+    cum += v;
+    const float t_unw = ang_t + acc[g] - kTwoPi * cum;
     const float resid = raw - ang_t;
-    u = t_unw + (resid - kTwoPi * rintf(resid / kTwoPi));
+    const float u = t_unw + (resid - kTwoPi * rintf(resid / kTwoPi));
+    B[(n1 + k) * kGroup + g] = u;
+    __syncthreads();
 
-    // C1: endpoint-fit FIR over [u history | u].
-    float est = 0.f;
-    int q = pos;
-    for (int i = 0; i < n1; ++i) {
-      est += p.fir_w[i] * uring[q * stride];
-      q = (q + 1 == n1) ? 0 : q + 1;
-    }
-    est += p.fir_w[n1] * u;
-    uring[pos * stride] = u;
-    pos = (pos + 1 == n1) ? 0 : pos + 1;
+    // 4. Endpoint-fit FIR over [u history | u], derotation or the
+    // differential decode, slicing, outputs.
+    if (act) {
+      float est = 0.f;
+      const float* uh = B + k * kGroup + g;
+      for (int i = 0; i < n1; ++i) est += w[i] * uh[i * kGroup];
+      est += w[n1] * u;
 
-    // C5: derotation or differential decode.
-    float base_r, base_i, corr;
-    if (p.diff) {
-      const float pp = prev_re * prev_re + prev_im * prev_im;
-      const float inv = 1.f / (pp == 0.f ? 1.f : pp);
-      base_r = (sel_re * prev_re + sel_im * prev_im) * inv;
-      base_i = (sel_im * prev_re - sel_re * prev_im) * inv;
-      corr = 0.f;
-    } else {
-      base_r = sel_re;
-      base_i = sel_im;
-      corr = -est / (float)p.m;
-    }
-    if (p.m == 4) corr += kQuarterPi;
-    prev_re = sel_re;
-    prev_im = sel_im;
-    float cph_r, cph_i;
-    sincosf(corr, &cph_i, &cph_r);
-    const float s_r = base_r * cph_r - base_i * cph_i;
-    const float s_i = base_r * cph_i + base_i * cph_r;
+      float base_r, base_i, corr;
+      if (p.diff) {
+        const float prev_re = B[offPR + k * kGroup + g];
+        const float prev_im = B[offPI + k * kGroup + g];
+        const float pp = prev_re * prev_re + prev_im * prev_im;
+        const float inv = 1.f / (pp == 0.f ? 1.f : pp);
+        base_r = (sre * prev_re + sim * prev_im) * inv;
+        base_i = (sim * prev_re - sre * prev_im) * inv;
+        corr = 0.f;
+      } else {
+        base_r = sre;
+        base_i = sim;
+        corr = -est / (float)p.m;
+      }
+      if (p.m == 4) corr += kQuarterPi;
+      float cph_r, cph_i;
+      sincosf(corr, &cph_i, &cph_r);
+      const float s_r = base_r * cph_r - base_i * cph_i;
+      const float s_i = base_r * cph_i + base_i * cph_r;
 
-    // C6: slicing, packed LSB-first.
-    int code;
-    if (p.m == 2) {
-      code = s_r < 0.f;
-    } else if (p.m == 4) {
-      const int sr = s_r < 0.f, si = s_i < 0.f;
-      code = (sr ^ si) + 2 * si;
-    } else {
-      float ss = atan2f(s_i, s_r) * p.m_scale;
-      if (ss < -0.5f) ss += (float)p.m;
-      code = (int)floorf(ss + 0.5f) & (p.m - 1);
+      int code;
+      if (p.m == 2) {
+        code = s_r < 0.f;
+      } else if (p.m == 4) {
+        const int sr = s_r < 0.f, si = s_i < 0.f;
+        code = (sr ^ si) + 2 * si;
+      } else {
+        float ss = atan2f(s_i, s_r) * p.m_scale;
+        if (ss < -0.5f) ss += (float)p.m;
+        code = (int)floorf(ss + 0.5f) & (p.m - 1);
+      }
+
+      const int64_t out = (int64_t)o * C + c;
+      if (p.soft_i8) {
+        const float qr = fminf(fmaxf(rintf(s_r * p.soft_scale), -127.f),
+                               127.f);
+        const float qi = fminf(fmaxf(rintf(s_i * p.soft_scale), -127.f),
+                               127.f);
+        static_cast<int8_t*>(p.soft_re)[out] = (int8_t)qr;
+        static_cast<int8_t*>(p.soft_im)[out] = (int8_t)qi;
+      } else {
+        static_cast<float*>(p.soft_re)[out] = s_r;
+        static_cast<float*>(p.soft_im)[out] = s_i;
+      }
+      if (p.phase) p.phase[out] = est;
+      store_code(p.bits, p.pack_out, out, code);
     }
 
-    const int64_t out = (int64_t)o * C + c;
-    if (p.soft_i8) {
-      const float qr = fminf(fmaxf(rintf(s_r * p.soft_scale), -127.f), 127.f);
-      const float qi = fminf(fmaxf(rintf(s_i * p.soft_scale), -127.f), 127.f);
-      static_cast<int8_t*>(p.soft_re)[out] = (int8_t)qr;
-      static_cast<int8_t*>(p.soft_im)[out] = (int8_t)qi;
-    } else {
-      static_cast<float*>(p.soft_re)[out] = s_r;
-      static_cast<float*>(p.soft_im)[out] = s_i;
+    // 5. The histories the next chunk starts from go to the other buffer.
+    const int shift = nk * kGroup;
+    for (int i = tid; i < n1 * kGroup; i += nt) N[i] = B[i + shift];
+    for (int i = tid; i < kTrend1 * kGroup; i += nt) {
+      N[offCR + i] = B[offCR + i + shift];
+      N[offCI + i] = B[offCI + i + shift];
     }
-    if (p.phase) p.phase[out] = est;
-    if (p.pack_out) {
-      static_cast<int8_t*>(p.bits)[out] = (int8_t)code;
-      if (p.idx) static_cast<int8_t*>(p.idx)[out] = (int8_t)b;
-    } else {
-      static_cast<int32_t*>(p.bits)[out] = code;
-      if (p.idx) static_cast<int32_t*>(p.idx)[out] = b;
+    if (tid < kGroup) {
+      N[offA + tid] = B[offA + shift + tid];
+      N[offPR + tid] = B[offPR + shift + tid];
+      N[offPI + tid] = B[offPI + shift + tid];
     }
+    if (k == nk - 1) cum_base[g] = cum;
+    cur ^= 1;
   }
+  __syncthreads();
 
   // --- carries out, with the M*2pi re-wrap from the last unwrapped phase ---
+  const float* const F = bufs + cur * bsz;
   const float wrapv = kTwoPi * (float)p.m;
-  const float wraps = rintf(u / wrapv);
-  const float off = fabsf(u) > wrapv ? wraps * wrapv : 0.f;
-  int q = pos;
-  for (int i = 0; i < n1; ++i) {
-    p.state_out[i * C + c] = uring[q * stride] - off;
-    q = (q + 1 == n1) ? 0 : q + 1;
+  for (int i = tid; i < p.state_rows * kGroup; i += nt) {
+    const int r = i / kGroup, gg = i % kGroup;
+    if (c0 + gg >= C) continue;
+    const float u_last = F[(n1 - 1) * kGroup + gg];
+    const float wraps = rintf(u_last / wrapv);
+    const float off = fabsf(u_last) > wrapv ? wraps * wrapv : 0.f;
+    float val;
+    if (r < n1)
+      val = F[r * kGroup + gg] - off;
+    else if (r < n1 + kTrend1)
+      val = F[offCR + (r - n1) * kGroup + gg];
+    else if (r < misc)
+      val = F[offCI + (r - n1 - kTrend1) * kGroup + gg];
+    else if (r == misc)
+      val = F[offA + gg];
+    else if (r == misc + 1)
+      val = acc[gg] - kTwoPi * cum_base[gg] - off;
+    else if (r == misc + 2)
+      val = F[offPR + gg];
+    else if (r == misc + 3)
+      val = F[offPI + gg];
+    else
+      val = p.state_in[(int64_t)r * C + c0 + gg];
+    p.state_out[(int64_t)r * C + c0 + gg] = val;
   }
-#pragma unroll
-  for (int i = 0; i < kTrend1; ++i) {
-    p.state_out[(n1 + i) * C + c] = cre[i];
-    p.state_out[(n1 + kTrend1 + i) * C + c] = cim[i];
-  }
-  p.state_out[misc * C + c] = ang_prev;
-  p.state_out[(misc + 1) * C + c] = acc - kTwoPi * cum - off;
-  p.state_out[(misc + 2) * C + c] = prev_re;
-  p.state_out[(misc + 3) * C + c] = prev_im;
+}
+
+int64_t timing_smem_bytes(int sps) {
+  return (int64_t)sizeof(float) * sps
+         * (sps <= psk::kTimingMaxBinsSps
+                ? psk::kTimingChunk * psk::kTimingLanes
+                : kWideThreads);
+}
+
+cudaError_t allow_smem(const void* kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
 
-// Launch on `stream`.  Pointers are device pointers; phase and idx may be
-// null.  Returns cudaGetLastError() after the launch (0 = launched).
+// Dynamic shared memory per block of stage A (stage 0) or stage B
+// (stage 1), so the wrapper's launch plan can be checked against it.
+extern "C" int64_t psk_demod_full_smem(int stage, int sps, int phase_avg,
+                                       int chunk) {
+  return stage == 0 ? timing_smem_bytes(sps)
+                    : track_smem_bytes(phase_avg - 1, chunk);
+}
+
+// Launch on `stream`: a memset of first_bad, stage A, stage B.  Pointers
+// are device pointers; phase and idx may be null; sel_re, sel_im, raw
+// ((S, C) float32) and first_bad ((2, sps, C) int32) are scratch.  Returns
+// 0 once all are launched, cudaErrorInvalidValue for arguments the kernels
+// do not take, or the first error of a launch (cudaGetLastError()).
 extern "C" int psk_demod_full_tm(
     const float* win_re, const float* win_im, int64_t win_rows,
     const float* x_re, const float* x_im, const float* state_in,
     float* state_out, const float* fir_w, void* soft_re, void* soft_im,
-    float* phase, void* bits, void* idx, int C, int S, int sps, int num_avg,
+    float* phase, void* bits, void* idx, float* sel_re, float* sel_im,
+    float* raw, int* first_bad, int C, int S, int sps, int num_avg,
     int phase_avg, int m, int diff, int pack_out, int soft_i8,
-    float soft_scale, int state_rows, void* stream) {
+    float soft_scale, int state_rows, int tile, int chunk, void* stream) {
+  const int tiles = tile > 0 ? (S + tile - 1) / tile : 0;
+  if (C < 1 || S < 1 || sps < 2 || num_avg < 2 || phase_avg < kTrend + 1
+      || tile < 1 || tiles > 65535 || chunk < kSymsPerWarp
+      || chunk % kSymsPerWarp || chunk * kGroup > kMaxThreads
+      || win_rows != (int64_t)(num_avg - 1) * sps)
+    return (int)cudaErrorInvalidValue;
   Params p;
-  p.win_re = win_re;
-  p.win_im = win_im;
-  p.x_re = x_re;
-  p.x_im = x_im;
+  p.in = psk::TwoPlanes{win_re, win_im, x_re, x_im, win_rows, C};
+  p.sel_re = sel_re;
+  p.sel_im = sel_im;
+  p.raw = raw;
+  p.first_bad = first_bad;
   p.state_in = state_in;
   p.state_out = state_out;
   p.fir_w = fir_w;
@@ -286,35 +488,51 @@ extern "C" int psk_demod_full_tm(
   p.phase = phase;
   p.bits = bits;
   p.idx = idx;
-  p.win_rows = win_rows;
   p.C = C;
   p.S = S;
   p.sps = sps;
   p.num_avg = num_avg;
-  p.phase_avg = phase_avg;
+  p.n1 = phase_avg - 1;
   p.m = m;
   p.diff = diff;
   p.pack_out = pack_out;
   p.soft_i8 = soft_i8;
   p.state_rows = state_rows;
+  p.tile = tile;
+  p.chunk = chunk;
   p.soft_scale = soft_scale;
   p.m_scale = (float)((double)m / 6.283185307179586);
 
-  const size_t smem = (size_t)(sps + phase_avg - 1) * kThreads * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        demod_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 0x7f7f7f7f: no non-finite sample seen (above any symbol index).
+  cudaError_t e = cudaMemsetAsync(first_bad, 0x7f,
+                                  sizeof(int) * 2 * (size_t)sps * C, s);
+  if (e != cudaSuccess) return (int)e;
+
+  const int64_t smem_a = timing_smem_bytes(sps);
+  if (sps <= psk::kTimingMaxBinsSps) {
+    const dim3 grid((C + psk::kTimingLanes - 1) / psk::kTimingLanes, tiles);
+    demod_timing_bins_kernel<<<grid, dim3(psk::kTimingLanes, sps), smem_a,
+                               s>>>(p);
+  } else {
+    e = allow_smem((const void*)demod_timing_wide_kernel, smem_a);
     if (e != cudaSuccess) return (int)e;
+    const dim3 grid((C + kWideThreads - 1) / kWideThreads, tiles);
+    demod_timing_wide_kernel<<<grid, kWideThreads, smem_a, s>>>(p);
   }
-  const int blocks = (C + kThreads - 1) / kThreads;
-  demod_full_kernel<<<blocks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const int64_t smem_b = track_smem_bytes(p.n1, chunk);
+  e = allow_smem((const void*)demod_track_kernel, smem_b);
+  if (e != cudaSuccess) return (int)e;
+  demod_track_kernel<<<(C + kGroup - 1) / kGroup, chunk * kGroup, smem_b,
+                       s>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Largest dynamic shared memory a block may use on the current device, so
-// the wrapper can reject sps + phase_avg that would not fit.
+// the wrapper can reject shapes whose stages would not fit.
 extern "C" int psk_demod_full_max_smem(void) {
   int dev = 0, v = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;

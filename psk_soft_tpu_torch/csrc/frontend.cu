@@ -18,11 +18,12 @@
 // energy, subtract the leaving one's, both re-read through L2).  Every
 // kChunk symbols the warps exchange their sums through shared memory and
 // each warp takes the first-max argmax and the decision-sample gather of
-// its own symbols of the chunk.  The [window | block] reader and the
-// first-max rule are kernel B1's (timing.cuh), so the pipeline never
-// concatenates the window in device memory.  For sps > 32 (a block would
-// exceed 1024 threads) one thread owns a channel's bins for its tile,
-// with the sums in its column of shared memory.  The Pallas kernel's
+// its own symbols of the chunk.  The [window | block] reader, the
+// first-max rule and the tile loops themselves are shared with kernel
+// B1's stage A (timing.cuh), so the pipeline never concatenates the
+// window in device memory.  For sps > 32 (a block would exceed 1024
+// threads) one thread owns a channel's bins for its tile, with the sums
+// in its column of shared memory.  The Pallas kernel's
 // 128-lane grid, DMA halo and log-step cumsum are TPU workarounds and are
 // not carried over.
 //
@@ -42,9 +43,9 @@
 
 namespace {
 
-constexpr int kLanes = 32;        // channels per block (bins kernel)
-constexpr int kChunk = 8;         // symbols per shared-memory exchange
-constexpr int kMaxBinsSps = 32;   // bins kernel: one warp per bin
+constexpr int kLanes = psk::kTimingLanes;     // channels per block (bins)
+constexpr int kChunk = psk::kTimingChunk;     // symbols per exchange
+constexpr int kMaxBinsSps = psk::kTimingMaxBinsSps;
 constexpr int kThreads = 128;     // channels per block (wide-sps kernel)
 
 struct Params {
@@ -69,45 +70,9 @@ __device__ __forceinline__ void emit(const Params& p, int o, int c, int b) {
 __global__ void __launch_bounds__(kLanes * kMaxBinsSps)
 frontend_bins_kernel(const Params p) {
   extern __shared__ float wbuf[];
-  const int lane = threadIdx.x;
-  const int j = threadIdx.y;
-  const int sps = p.sps;
-  const int c = blockIdx.x * kLanes + lane;
-  const bool live = c < p.in.C;       // idle lanes still meet the barriers
-  const int o0 = blockIdx.y * p.tile;
-  const int o1 = min(o0 + p.tile, p.S);
-
-  // Window sum of output symbol o0: symbols [o0, o0 + num_avg).
-  float w = 0.f;
-  if (live) {
-#pragma unroll 4
-    for (int t = o0; t < o0 + p.num_avg; ++t)
-      w += p.in.energy((int64_t)t * sps + j, c);
-  }
-  for (int base = o0; base < o1; base += kChunk) {
-#pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      const int o = base + s;
-      if (live && o > o0 && o < o1)   // slide to symbols [o, o + num_avg)
-        w = w + p.in.energy((int64_t)(o + p.num_avg - 1) * sps + j, c)
-            - p.in.energy((int64_t)(o - 1) * sps + j, c);
-      wbuf[(s * sps + j) * kLanes + lane] = w;
-    }
-    __syncthreads();
-    for (int s = j; s < kChunk; s += sps) {
-      const int o = base + s;
-      if (!live || o >= o1) continue;
-      const float* col = wbuf + s * sps * kLanes + lane;
-      int b = 0;
-      float best = col[0];
-      for (int q = 1; q < sps; ++q) {
-        const float v = col[q * kLanes];
-        if (psk::takes_max(v, best)) { best = v; b = q; }
-      }
-      emit(p, o, c, b);
-    }
-    __syncthreads();
-  }
+  psk::timing_tile_bins(
+      p.in, p.S, p.sps, p.num_avg, p.tile, wbuf,
+      [&](int o, int c, int b) { emit(p, o, c, b); }, psk::NoNote{});
 }
 
 // sps > 32: one thread per (channel, tile), the bins in the thread's
@@ -115,33 +80,9 @@ frontend_bins_kernel(const Params p) {
 __global__ void __launch_bounds__(kThreads)
 frontend_wide_kernel(const Params p) {
   extern __shared__ float smem[];
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= p.in.C) return;
-  const int sps = p.sps;
-  const int o0 = blockIdx.y * p.tile;
-  const int o1 = min(o0 + p.tile, p.S);
-  float* w = smem + threadIdx.x;      // bin j at w[j * kThreads]
-
-  for (int j = 0; j < sps; ++j) w[j * kThreads] = 0.f;
-  for (int t = o0; t < o0 + p.num_avg; ++t)
-    for (int j = 0; j < sps; ++j)
-      w[j * kThreads] += p.in.energy((int64_t)t * sps + j, c);
-  for (int o = o0; o < o1; ++o) {
-    if (o > o0) {
-      const int64_t r_in = (int64_t)(o + p.num_avg - 1) * sps;
-      const int64_t r_out = (int64_t)(o - 1) * sps;
-      for (int j = 0; j < sps; ++j)
-        w[j * kThreads] = w[j * kThreads] + p.in.energy(r_in + j, c)
-                          - p.in.energy(r_out + j, c);
-    }
-    int b = 0;
-    float best = w[0];
-    for (int j = 1; j < sps; ++j) {
-      const float v = w[j * kThreads];
-      if (psk::takes_max(v, best)) { best = v; b = j; }
-    }
-    emit(p, o, c, b);
-  }
+  psk::timing_tile_wide(
+      p.in, p.S, p.sps, p.num_avg, p.tile, smem,
+      [&](int o, int c, int b) { emit(p, o, c, b); }, psk::NoNote{});
 }
 
 }  // namespace

@@ -3,15 +3,21 @@
 
 Three pieces, as for every kernel of the port:
 
-* ``csrc/demod_full.cu``: the CUDA C++ kernel (its header note says what
-  bounds it on an H100), built with nvcc for sm_90a into
-  ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.
+* ``csrc/demod_full.cu``: the CUDA C++ kernels (its header note says
+  what bounds them on an H100), built with nvcc for sm_90a into
+  ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.  One
+  wrapper call launches two kernels: stage A (timing and the raw phase,
+  parallel over channel and symbol tile, kernel B5's tile loops) and
+  stage B (trend, unwrap scan, FIR, derotation, slicing, carry; one block
+  per group of channels walking the block in chunks of symbols).
+  :func:`launch_plan` sizes both in Python.
 * :func:`demod_full_tm_ref`: the same function in plain PyTorch, on any
   device.  It follows the kernel's stages (9-tap trend on every symbol,
   prefix unwrap, endpoint FIR), not blockpsk's strided unwrap.
 * :func:`demod_full_tm`: the wrapper.  A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel, and a failed build, load or
-  launch raises.  ``demod_full_tm.launches`` counts kernel launches.
+  version; a CUDA tensor launches the kernels, and a failed build, load or
+  launch raises.  ``demod_full_tm.launches`` counts wrapper calls that
+  launched them.
 
 The carry plane keeps the Pallas layout (:func:`state_rows`), so
 ``models/full.full_from_ff`` and the tests compare planes directly.  One
@@ -29,6 +35,7 @@ import ctypes
 import functools
 import os
 import shutil
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +50,18 @@ TIMING_HEADER = CSRC / "timing.cuh"     # shared with kernel B5
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Constants of csrc/timing.cuh and csrc/demod_full.cu that the launch plan
+# needs (chip_smoke.py holds the plan's shared memory against the
+# library's own count).
+TARGET_THREADS = 65536         # 16 warps in flight on each of 132 SMs
+TIMING_LANES = 32              # stage A, bins layout: channels per block
+TIMING_CHUNK = 8               # stage A: symbols per shared-memory exchange
+TIMING_MAX_BINS_SPS = 32       # stage A: one warp per bin up to this sps
+TIMING_WIDE_THREADS = 32       # stage A, wide layout: channels per block
+TRACK_GROUP = 8                # stage B: channels per block
+TRACK_MAX_CHUNK = 64           # stage B: symbols per chunk
+TREND_HIST = UNWRAP_TREND_LEN - 1
+
 
 def state_rows(phase_avg: int, k: int = UNWRAP_TREND_LEN) -> int:
     """Rows of the carry plane: u_hist | c_re hist | c_im hist | misc(8),
@@ -51,6 +70,67 @@ def state_rows(phase_avg: int, k: int = UNWRAP_TREND_LEN) -> int:
     through unchanged]."""
     raw = (phase_avg - 1) + 2 * (k - 1) + 8
     return -(-raw // 8) * 8
+
+
+def pick_tile(channels: int, symbols: int, threads_per_tile: int) -> int:
+    """Symbols per thread of the timing tile loops (stage A here, kernel
+    B5): the largest power of two >= 8 that still gives TARGET_THREADS
+    threads (more symbols per thread re-read fewer window rows from L2;
+    fewer keep more warps in flight), within the grid's 65535 tiles.
+    ``threads_per_tile``: threads per (channel, tile), sps for the bins
+    layout, 1 for the wide one (csrc/timing.cuh)."""
+    per = channels * threads_per_tile
+    tile = 8
+    while tile < symbols and per * -(-symbols // (2 * tile)) >= TARGET_THREADS:
+        tile *= 2
+    while -(-symbols // tile) > 65535:
+        tile *= 2
+    return tile
+
+
+class LaunchPlan(NamedTuple):
+    """How one wrapper call launches B1's two stages (csrc/demod_full.cu).
+    Grids and blocks are CUDA (x, y) sizes; shared memory is bytes per
+    block; scratch maps each buffer the wrapper allocates to its shape."""
+    timing_layout: str          # "bins" (sps <= 32) or "wide"
+    tile: int                   # stage A: output symbols per tile
+    timing_grid: tuple
+    timing_block: tuple
+    timing_smem: int
+    chunk: int                  # stage B: symbols per chunk
+    group: int                  # stage B: channels per block
+    track_grid: tuple
+    track_block: tuple
+    track_smem: int
+    scratch: dict
+
+
+def launch_plan(C: int, S: int, sps: int, phase_avg: int) -> LaunchPlan:
+    """Pure-Python launch plan of :func:`demod_full_tm` for C channels,
+    S symbols; the same sizes as the kernels' own (``psk_demod_full_smem``
+    in csrc/demod_full.cu)."""
+    bins = sps <= TIMING_MAX_BINS_SPS
+    # At least two tiles past 8 symbols: no thread walks the whole block.
+    tile = min(pick_tile(C, S, sps if bins else 1), max(8, -(-S // 2)))
+    lanes = TIMING_LANES if bins else TIMING_WIDE_THREADS
+    timing_smem = 4 * sps * (TIMING_CHUNK * TIMING_LANES if bins
+                             else TIMING_WIDE_THREADS)
+    per_warp = 32 // TRACK_GROUP
+    chunk = min(TRACK_MAX_CHUNK, -(-S // per_warp) * per_warp)
+    n1 = phase_avg - 1
+    buffer = ((n1 + chunk) + 2 * (TREND_HIST + chunk)
+              + 3 * (1 + chunk)) * TRACK_GROUP
+    track_smem = 4 * (2 * buffer + n1 + 1 + chunk // per_warp * TRACK_GROUP
+                      + 3 * TRACK_GROUP)
+    return LaunchPlan(
+        timing_layout="bins" if bins else "wide", tile=tile,
+        timing_grid=(-(-C // lanes), -(-S // tile)),
+        timing_block=(lanes, sps if bins else 1), timing_smem=timing_smem,
+        chunk=chunk, group=TRACK_GROUP,
+        track_grid=(-(-C // TRACK_GROUP), 1),
+        track_block=(chunk * TRACK_GROUP, 1), track_smem=track_smem,
+        scratch={"sel_re": (S, C), "sel_im": (S, C), "raw": (S, C),
+                 "first_bad": (2, sps, C)})
 
 
 def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
@@ -261,10 +341,12 @@ def load_library():
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.psk_demod_full_tm.restype = i32
     lib.psk_demod_full_tm.argtypes = (
-        [vp, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        + [i32] * 9 + [ctypes.c_float, i32, vp])
+        [vp, vp, i64] + [vp] * 14 + [i32] * 9
+        + [ctypes.c_float, i32, i32, i32, vp])
     lib.psk_demod_full_max_smem.restype = i32
     lib.psk_demod_full_max_smem.argtypes = []
+    lib.psk_demod_full_smem.restype = i64
+    lib.psk_demod_full_smem.argtypes = [i32, i32, i32, i32]
     return lib, log
 
 
@@ -297,7 +379,7 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
       with (S, C) symbol-rate planes.
 
     CPU tensors take :func:`demod_full_tm_ref`; CUDA tensors launch the
-    kernel on the current stream.
+    two stages of kernel B1 on the current stream (:func:`launch_plan`).
     """
     kwargs = dict(sps=sps, num_avg=num_avg, phase_avg=phase_avg, m=m,
                   pack_out=pack_out, mf_taps=mf_taps,
@@ -316,27 +398,37 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     dev = x_re.device
     T, C = x_re.shape
     S = T // sps
+    plan = launch_plan(C, S, sps, phase_avg)
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        smem = (sps + phase_avg - 1) * 32 * 4
-        if smem > lib.psk_demod_full_max_smem():
-            raise ValueError(f"sps + phase_avg - 1 = {sps + phase_avg - 1} "
-                             f"needs {smem} bytes of shared memory per "
-                             f"block, more than this device allows")
+        limit = lib.psk_demod_full_max_smem()
+        for stage, smem in (("stage A (timing)", plan.timing_smem),
+                            ("stage B (tracking)", plan.track_smem)):
+            if smem > limit:
+                raise ValueError(
+                    f"sps {sps}, phase_avg {phase_avg}: {stage} needs {smem}"
+                    f" bytes of shared memory per block, more than this "
+                    f"device's limit of {limit}")
         outs = _alloc_outputs(S, C, dev, pack_out, soft_i8_scale,
                               debug_ports)
         o_sre, o_sim, o_phase, o_bits, o_idx = outs
         new_state = torch.empty_like(state_planes)
+        sel_re, sel_im, raw = (
+            torch.empty(plan.scratch[k], dtype=torch.float32, device=dev)
+            for k in ("sel_re", "sel_im", "raw"))
+        first_bad = torch.empty(plan.scratch["first_bad"], dtype=torch.int32,
+                                device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psk_demod_full_tm(
             _ptr(win_re), _ptr(win_im), win_re.shape[0], _ptr(x_re),
             _ptr(x_im), _ptr(state_planes), _ptr(new_state),
             _ptr(_fir_weights(phase_avg, dev)), _ptr(o_sre), _ptr(o_sim),
-            _ptr(o_phase), _ptr(o_bits), _ptr(o_idx), C, S, sps, num_avg,
+            _ptr(o_phase), _ptr(o_bits), _ptr(o_idx), _ptr(sel_re),
+            _ptr(sel_im), _ptr(raw), _ptr(first_bad), C, S, sps, num_avg,
             phase_avg, m, int(bool(diff)), int(pack_out),
             int(soft_i8_scale is not None),
-            float(soft_i8_scale or 0.0), state_planes.shape[0],
-            ctypes.c_void_p(stream))
+            float(soft_i8_scale or 0.0), state_planes.shape[0], plan.tile,
+            plan.chunk, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")
     demod_full_tm.launches += 1

@@ -29,10 +29,10 @@ import torch
 
 from ...ops import timing
 from ...utils.build import build_shared
-from .demod_kernel import CSRC, NVCC_FLAGS, TIMING_HEADER, nvcc_path
+from .demod_kernel import (CSRC, NVCC_FLAGS, TIMING_HEADER, nvcc_path,
+                           pick_tile)
 
 SOURCE = CSRC / "frontend.cu"
-TARGET_THREADS = 65536         # 16 warps in flight on each of 132 SMs
 
 
 def _check_args(win_re, win_im, x_re, x_im, *, sps: int, num_avg: int):
@@ -71,21 +71,6 @@ def timing_frontend_tm_ref(win_re, win_im, x_re, x_im, *, sps: int,
     idx, sel = timing.select_decision_samples(xs[:, :S], w)
     return (sel.real.T.contiguous(), sel.imag.T.contiguous(),
             idx.T.contiguous())
-
-
-def pick_tile(channels: int, symbols: int, threads_per_tile: int) -> int:
-    """Symbols per thread: the largest power of two >= 8 that still gives
-    TARGET_THREADS threads (more symbols per thread re-read fewer window
-    rows from L2; fewer keep more warps in flight), within the grid's
-    65535 tiles.  ``threads_per_tile``: threads per (channel, tile), sps
-    for the kernel's bins layout (csrc/frontend.cu)."""
-    per = channels * threads_per_tile
-    tile = 8
-    while tile < symbols and per * -(-symbols // (2 * tile)) >= TARGET_THREADS:
-        tile *= 2
-    while -(-symbols // tile) > 65535:
-        tile *= 2
-    return tile
 
 
 @functools.lru_cache(maxsize=None)
