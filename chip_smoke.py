@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      versions, whether triton imports;
   2. build kernel B1 (csrc/demod_full.cu), kernels B2, B3, B4
      (csrc/viterbi.cu) and B5 (csrc/frontend.cu) with nvcc for sm_90a,
-     one nvcc per source, started together;
+     one nvcc per source, started together; print ptxas's registers and
+     spills of each kernel;
   3. kernel B1 (stage A: timing and raw phase; stage B: tracking) against
      its plain-PyTorch version on the card at 1024 channels x 512
      symbols, sps 8, num_avg 100, phase_avg 50: M in {2, 4, 8, 16},
@@ -27,20 +28,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      same CUDA tensors), B1's stage times from one torch.profiler pass,
      and the engine's end-to-end samples/s;
   6. the Viterbi kernels against their plain versions on the card, bits
-     and decisions equal, final metrics within 1e-5: B2 at the chain shape
+     and decisions equal (torch.equal), final metrics within 1e-5 with NaN
+     where the plain version has it; B2's and B3's launch plan equal to
+     the library's own at the edges.  (a) B2 and B3 at the chain shape
      (K7, n 2, 64 steps, 6144 rows) terminated and not, noisy and hard
-     +/-1 LLRs, and K3, K9, punctured 2/3 and 3/4; B3 + B4 on long
-     trellises (K7 512 rows x 4096 steps, K9 256 x 1024); the fused path
-     against the two-phase path (t_tile given) at the chain shape;
+     +/-1 LLRs, and K3, K9, K10, punctured 2/3 and 3/4, rate 1/3; then on
+     random planes: B = 6145, t_actual 0 and 1, T_pad > t_actual, random
+     pm0 rows, NaN in pm0 rows 5 and 40 (terminate=False, t_actual 1 and
+     3: the start state takes the first NaN, as torch.argmax); B2 at its
+     longest trellises (K2, K7, K9 at 1472 steps, K10 at 704; n 2, 3 and
+     8), where its blocks shrink to one or two warps.  (b) The
+     fused path against the two-phase path (t_tile given) at the chain
+     shape.  (c) B3 + B4 on long trellises (K7 512 rows x 4096 and 4133
+     steps, K9 256 x 1024);
   7. ChainEngine end to end at 1024 channels x 512 symbols (QPSK, UW 32,
      payload 64, K7, CRC-16, 4 frames per block per channel on an
      unaligned cadence): 1 warm-up block, 10 steady blocks and a flush on
      the card, every planted frame after the warm-up decoded exactly once
      with exact bits and the CRC green, the frame list equal to the same
      engine's on the CPU, B1 and B2 launched at least once per block;
-  8. times: B2 per block and B3, B4 at the long shape against their plain
-     versions (CUDA events), the chain engine end to end at pipeline depth
-     0 and 1 with a host-clock breakdown, one torch.profiler pass;
+  8. times: B2 per block and B3, B4 at the long shape, the wrapper's
+     against their plain versions (CUDA events), and their kernels' device
+     time (torch.profiler); the chain engine end to end
+     at pipeline depth 0 and 1 with a host-clock breakdown, one
+     torch.profiler pass (B2's and B1's device ms per block and share of
+     the busy time, host-to-device copies per block);
   9. kernel B5 (csrc/frontend.cu, built with the others in phase 2)
      against its plain version at 1024 x 512: equal on planted symbols;
      on pure noise a differing sample index only at a near tie (top two
@@ -184,6 +196,11 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+# Kernel names (torch.profiler keys) of B2 and B3 at K7, n = 2, and B4.
+B2_KERNEL = "viterbi_warp_kernel<2, 2, true>"
+B3_KERNEL = "viterbi_warp_kernel<2, 2, false>"
+B4_KERNEL = "viterbi_traceback_kernel"
+
 B1_STAGES = {"stage_a_timing": "demod_timing", "stage_b_track": "demod_track",
              "first_bad_memset": "Memset"}
 
@@ -215,11 +232,33 @@ def b1_stage_ms(torch, fn, args_list, iters: int = 20) -> dict:
     return out
 
 
+def kernel_device_ms(torch, fn, name: str, iters: int = 10) -> float:
+    """Device time of the kernels whose name holds ``name``, per call of
+    ``fn``, from one torch.profiler pass over ``iters`` calls (the wrapper's
+    host work is not in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(dev_us(e) for e in prof.key_averages()
+             if e.self_cpu_time_total == 0 and name in e.key)
+    if not us:
+        raise AssertionError(f"profiler shows no device time for {name}")
+    return us / 1e3 / iters
+
+
 def profile_engine(feed, card: str, what: str = "engine, depth 0",
-                   blocks: int = 5) -> None:
+                   blocks: int = 5, watch: dict | None = None) -> None:
     """torch.profiler over a few engine blocks: device busy time by
-    operation and the device's idle share of the wall time.  The profiler's
-    table goes to standard error."""
+    operation, the device's idle share of the wall time, the host-to-device
+    copies per block, and the device time of each kernel in ``watch``
+    (label -> a piece of its kernel's name).  The profiler's table goes to
+    standard error."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,6 +277,8 @@ def profile_engine(feed, card: str, what: str = "engine, depth 0",
     dev_rows = [e for e in ka if e.self_cpu_time_total == 0 and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in dev_rows) / 1e3
     top = sorted(dev_rows, key=dev_us, reverse=True)[:6]
+    watched = {label: sum(dev_us(e) for e in dev_rows if name in e.key)
+               / 1e3 / blocks for label, name in (watch or {}).items()}
     print(f"{card}: {blocks} engine blocks, wall {wall:.4f} s\n"
           f"{ka.table(row_limit=30)}", file=sys.stderr)
     log(json.dumps({"phase": "profile", "what": what,
@@ -246,6 +287,13 @@ def profile_engine(feed, card: str, what: str = "engine, depth 0",
                     "device_idle_share": 1.0 - busy / (wall * 1e3),
                     "device_ops_per_block": sum(e.count for e in dev_rows)
                     / blocks,
+                    "htod_copies_per_block": sum(
+                        e.count for e in dev_rows if "HtoD" in e.key)
+                    / blocks,
+                    "kernel_ms_per_block": watched,
+                    "kernel_share_of_busy": {
+                        k: v * blocks / busy if busy else 0.0
+                        for k, v in watched.items()},
                     "top_device_ms_per_block": {
                         e.key: dev_us(e) / 1e3 / blocks for e in top},
                     "card": card}))
@@ -445,6 +493,62 @@ def viterbi_llrs(code, rows: int, n_info: int, hard: bool,
             + 0.8 * rng.standard_normal(bits.shape)).astype(np.float32)
 
 
+def viterbi_plans(vk) -> int:
+    """The Python launch plan of B2 and B3 against the library's own
+    (psk_viterbi_plan) at the edges: equal plans, and the same launches
+    refused.  Returns the number of shapes held."""
+    import ctypes
+
+    lib = vk.load_library()[0]
+    out = (ctypes.c_int32 * 8)()
+    held = 0
+    for fused in (True, False):
+        for s_count in (2, 4, 64, 128, 256, 512):
+            for n in (1, 2, 3, 8):
+                for t in (0, 1, 64, 191, 704, 705, 1472, 1473, 4133):
+                    for b in (1, 6145):
+                        try:
+                            want = tuple(vk.launch_plan(s_count, n, t, b,
+                                                        fused))
+                        except ValueError:
+                            want = None
+                        rc = lib.psk_viterbi_plan(int(fused), s_count, n, t,
+                                                  b, out)
+                        got = tuple(out) if rc == 0 else None
+                        if got != want:
+                            raise AssertionError(
+                                f"plan fused={fused} S={s_count} n={n} t={t}"
+                                f" B={b}: Python {want}, library {got}")
+                        held += 1
+    return held
+
+
+def viterbi_check(torch, vk, label: str, llr_t, pm0, exp, kw: dict,
+                  terminate: bool, fused: bool = True) -> float:
+    """B2 (when ``fused``) and B3 against their plain versions on the same
+    planes: bits and decisions equal (torch.equal), final metrics within
+    PM_TOL with NaN and inf where the plain version's are.  Returns the
+    metrics' largest error; raises on a difference."""
+    if fused:
+        got = vk.viterbi_fused(llr_t, pm0, exp, terminate=terminate, **kw)
+        ref = vk.viterbi_fused_ref(llr_t, pm0, exp, terminate=terminate,
+                                   **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B2 {label}: bits differ at "
+                                 f"{int((got != ref).sum())} of "
+                                 f"{got.numel()}")
+        del got, ref
+    dec, pm = vk.viterbi_acs(llr_t, pm0, exp, **kw)
+    dec_r, pm_r = vk.viterbi_acs_ref(llr_t, pm0, exp, **kw)
+    torch.cuda.synchronize()
+    err = finite_err(pm, pm_r)
+    if not torch.equal(dec, dec_r) or err > PM_TOL:
+        raise AssertionError(f"B3 {label}: decisions differ at "
+                             f"{int((dec != dec_r).sum())}, metrics {err}")
+    return err
+
+
 def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     """Phases 6 and 8a: kernels B2, B3 and B4 against their plain versions
     on the card, and their times.  Returns, per kernel, the numbers of the
@@ -455,35 +559,86 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     def planes(code, llr):
         return vk.decode_planes(code, torch.from_numpy(llr).to(dev))
 
-    # --- phase 6a: B2 at the chain shape (64 steps, 6144 rows) and others.
+    log(json.dumps({"phase": "viterbi_plan", "shapes_equal_to_library":
+                    viterbi_plans(vk)}))
+
+    # --- phase 6a: B2 and B3 at the chain shape (64 steps, 6144 rows) and
+    # others, then the new design's edges on random planes.
     rows = C * (S // 96 + 1)                  # ChainEngine's capacity k = 6
     p23 = fec.ConvCode(7, (0o171, 0o133), fec.PUNCTURE_2_3)
     p34 = fec.ConvCode(7, (0o171, 0o133), fec.PUNCTURE_3_4)
+    k10 = fec.ConvCode(10, (0o1167, 0o1545))
+    r13 = fec.ConvCode(7, (0o133, 0o165, 0o171))
     cases = [("K7", fec.CODE_K7, 58, False, True),
              ("K7 terminate=False", fec.CODE_K7, 58, False, False),
              ("K7 hard +/-1", fec.CODE_K7, 58, True, True),
              ("K3", fec.CODE_K3, 62, False, True),
              ("K9", fec.CODE_K9, 56, False, True),
              ("K7 punctured 2/3", p23, 58, False, True),
-             ("K7 punctured 3/4", p34, 60, False, True)]
+             ("K7 punctured 3/4", p34, 60, False, True),
+             ("K10", k10, 55, False, True),
+             ("K7 rate 1/3", r13, 58, False, True)]
     chain_args = None
+    pm_err = 0.0
     for i, (label, code, n_info, hard, terminate) in enumerate(cases):
         llr_t, pm0, exp, t, _ = planes(code, viterbi_llrs(code, rows, n_info,
                                                           hard, 60 + i))
-        kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=t,
-                  terminate=terminate)
-        got = vk.viterbi_fused(llr_t, pm0, exp, **kw)
-        ref = vk.viterbi_fused_ref(llr_t, pm0, exp, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"B2 {label}: bits differ at "
-                                 f"{int((got != ref).sum())} of "
-                                 f"{got.numel()}")
-        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2",
+        kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=t)
+        pm_err = max(pm_err, viterbi_check(torch, vk, label, llr_t, pm0, exp,
+                                           kw, terminate))
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2, B3",
                         "case": label, "rows": rows, "steps": t,
-                        "bits_equal": True}))
+                        "bits_equal": True, "decisions_equal": True}))
         if chain_args is None:
-            chain_args = (llr_t, pm0, exp, kw)
+            chain_args = (llr_t, pm0, exp, dict(kw, terminate=terminate))
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    code = fec.CODE_K7
+    exp = torch.from_numpy(vk.butterfly_signs(code)).to(dev)
+    edges = [("B=6145", 6145, 64, 64, "pinned", True),
+             ("t_actual 0", rows, 64, 0, "random", False),
+             ("t_actual 1", rows, 64, 1, "random", False),
+             ("T_pad > t_actual", rows, 64, 50, "random", False),
+             ("NaN in pm0 rows 5, 40, t_actual 1", rows, 64, 1, "nan",
+              False),
+             ("NaN in pm0 rows 5, 40, t_actual 3", rows, 64, 3, "nan",
+              False)]
+    for label, b, t_pad, t, start, terminate in edges:
+        llr_t = torch.randn((2, t_pad, b), generator=gen, device=dev)
+        pm0 = torch.full((64, b), -1e9, device=dev)
+        pm0[0] = 0.0
+        if start != "pinned":
+            pm0 = 10.0 * torch.randn((64, b), generator=gen, device=dev)
+        if start == "nan":
+            pm0[[5, 40]] = float("nan")
+        kw = dict(k=7, s_count=64, n=2, t_actual=t)
+        pm_err = max(pm_err, viterbi_check(torch, vk, label, llr_t, pm0, exp,
+                                           kw, terminate))
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2, B3",
+                        "case": f"K7 {label}", "rows": b, "steps": t,
+                        "t_pad": t_pad, "pm0": start,
+                        "terminate": terminate, "bits_equal": True,
+                        "decisions_equal": True}))
+
+    # B2 at the ends of its envelope (1472 steps, 704 at K10), where the
+    # plan drops to one or two warps a block and, at n = 8, to 16-step
+    # chunks that end inside a 32-step word group; random +/-1 signs.
+    for k, n, t in ((9, 2, 1472), (9, 8, 1472), (10, 2, 704), (7, 3, 1472),
+                    (2, 8, 1472)):
+        s_count, b = 1 << (k - 1), 333
+        exp_r = (2.0 * torch.randint(0, 2, (2 * s_count, n), generator=gen,
+                                     device=dev) - 1.0).float()
+        llr_t = torch.randn((n, t, b), generator=gen, device=dev)
+        pm0 = 10.0 * torch.randn((s_count, b), generator=gen, device=dev)
+        kw = dict(k=k, s_count=s_count, n=n, t_actual=t)
+        pm_err = max(pm_err, viterbi_check(torch, vk, f"K{k} n {n} {t} "
+                                           f"steps", llr_t, pm0, exp_r, kw,
+                                           False))
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B2, B3",
+                        "case": f"K{k} n {n} at B2's longest trellis",
+                        "rows": b, "steps": t, "plan": vk.launch_plan(
+                            s_count, n, t, b, True)._asdict(),
+                        "bits_equal": True, "decisions_equal": True}))
 
     # --- phase 6b: fused against two-phase at the chain shape, and both
     # against the plain decoder on the CPU.
@@ -498,13 +653,14 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
                     "rows": rows, "steps": 64, "bits_equal": True,
                     "equal_to_cpu_decoder": True}))
 
-    # --- phase 6c: B3 + B4 on long trellises.
-    pm_err = 0.0
+    # --- phase 6c: B3 + B4 on long trellises (4133 steps: not a whole
+    # number of chunks).
     long_args = None
-    for code, n_rows, steps in ((fec.CODE_K7, 512, 4096),
-                                (fec.CODE_K9, 256, 1024)):
+    for code, n_rows, steps, seed in ((fec.CODE_K7, 512, 4096, 87),
+                                      (fec.CODE_K9, 256, 1024, 89),
+                                      (fec.CODE_K7, 512, 4096 + 37, 120)):
         llr_t, pm0, exp, t, _ = planes(code, viterbi_llrs(
-            code, n_rows, steps - (code.k - 1), False, 80 + code.k))
+            code, n_rows, steps - (code.k - 1), False, seed))
         kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=t)
         dec, pm = vk.viterbi_acs(llr_t, pm0, exp, **kw)
         dec_r, pm_r = vk.viterbi_acs_ref(llr_t, pm0, exp, **kw)
@@ -522,8 +678,10 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
             raise AssertionError(f"B4 K{code.k}: bits differ at "
                                  f"{int((bits != bits_r).sum())}")
         pm_err = max(pm_err, err)
+        plan = vk.launch_plan(code.states, code.n, t, n_rows, False)
         log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B3+B4",
                         "K": code.k, "rows": n_rows, "steps": t,
+                        "chunk": plan.chunk,
                         "decisions_equal": True, "bits_equal": True,
                         "metrics_max_abs_err": err}))
         if long_args is None:
@@ -538,11 +696,19 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
         p2 = event_ms(plain, [()], iters=iters_plain)
         return [k1, k2], [p1, p2]
 
+    # The kernels line's "ms" is the CUDA-event time of 20 back-to-back
+    # wrapper calls, the lower of two readings, as for B1 and B5; the
+    # timing lines add each kernel's own device time (torch.profiler, by
+    # kernel name, two passes of 10 calls), which leaves out the wrapper's
+    # host work where that is the longer (B2).
     out = {}
     llr_t, pm0, exp, kw = chain_args
-    k_ms, p_ms = timed(lambda: vk.viterbi_fused(llr_t, pm0, exp, **kw),
+    fused_call = lambda: vk.viterbi_fused(llr_t, pm0, exp, **kw)  # noqa
+    k_ms, p_ms = timed(fused_call,
                        lambda: vk.viterbi_fused_ref(llr_t, pm0, exp, **kw),
                        10)
+    dev_ms = [kernel_device_ms(torch, fused_call, B2_KERNEL)
+              for _ in range(2)]
     t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
     acs_ops = t * b * s_count * (4 * n + 3)   # per (step, row, state)
     out["viterbi_fused"] = dict(
@@ -550,23 +716,31 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
         bytes=(llr_t.nbytes + pm0.nbytes + exp.nbytes + t * b))
     log(json.dumps({"phase": "timing", "what": "viterbi_fused (B2) per "
                     "chain block", "rows": b, "steps": t, "K": kw["k"],
-                    "kernel_ms": k_ms, "plain_ms": p_ms,
+                    "plan": vk.launch_plan(s_count, n, t, b, True)._asdict(),
+                    "kernel_ms": k_ms, "device_ms": dev_ms,
+                    "plain_ms": p_ms,
                     "kernel_infobits_per_s": b * (t - kw["k"] + 1)
                     / (min(k_ms) * 1e-3), "card": card}))
 
     llr_t, pm0, exp, kw, dec, start, tb = long_args
     t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
-    k_ms, p_ms = timed(lambda: vk.viterbi_acs(llr_t, pm0, exp, **kw),
+    acs_call = lambda: vk.viterbi_acs(llr_t, pm0, exp, **kw)  # noqa: E731
+    k_ms, p_ms = timed(acs_call,
                        lambda: vk.viterbi_acs_ref(llr_t, pm0, exp, **kw), 2)
+    dev_ms = [kernel_device_ms(torch, acs_call, B3_KERNEL) for _ in range(2)]
     out["viterbi_acs"] = dict(
         ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=pm_err,
         ops=t * b * s_count * (4 * n + 3),
         bytes=(llr_t.nbytes + 2 * pm0.nbytes + exp.nbytes + t * s_count * b))
     log(json.dumps({"phase": "timing", "what": "viterbi_acs (B3)",
                     "rows": b, "steps": t, "K": kw["k"], "kernel_ms": k_ms,
-                    "plain_ms": p_ms, "card": card}))
-    k_ms, p_ms = timed(lambda: vk.viterbi_traceback(dec, start, **tb),
+                    "device_ms": dev_ms, "plain_ms": p_ms,
+                    "plan": vk.launch_plan(s_count, n, t, b, False)._asdict(),
+                    "card": card}))
+    tb_call = lambda: vk.viterbi_traceback(dec, start, **tb)  # noqa: E731
+    k_ms, p_ms = timed(tb_call,
                        lambda: vk.viterbi_traceback_ref(dec, start, **tb), 2)
+    dev_ms = [kernel_device_ms(torch, tb_call, B4_KERNEL) for _ in range(2)]
     # The walk reads one decision byte per (step, row): what this data
     # needs, not the whole plane.
     out["viterbi_traceback"] = dict(
@@ -574,7 +748,7 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
         bytes=t * b + start.nbytes + t * b)
     log(json.dumps({"phase": "timing", "what": "viterbi_traceback (B4)",
                     "rows": b, "steps": t, "K": kw["k"], "kernel_ms": k_ms,
-                    "plain_ms": p_ms, "card": card}))
+                    "device_ms": dev_ms, "plain_ms": p_ms, "card": card}))
     return out
 
 
@@ -747,7 +921,9 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
                                               for k, v in acc.items()},
                         "card": card}))
         if depth == 0:
-            profile(feed, card, "chain engine, depth 0")
+            profile(feed, card, "chain engine, depth 0",
+                    watch={"viterbi_fused (B2)": B2_KERNEL,
+                           "demod_full_tm (B1)": "demod_"})
     return {"launches": launches}
 
 
@@ -1225,7 +1401,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for src, build_log in build_logs.items():
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"  ptxas {src}: {line.strip()}")
 
     # --- phase 3: B1 vs its plain version: modes, edges, poison, noise

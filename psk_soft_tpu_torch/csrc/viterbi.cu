@@ -18,51 +18,98 @@
 //   bm_p = e[.,0]*l0, then bm_p += e[.,i]*li for i = 1..n-1;
 //   c_p = pm[2j+p] + bm_p; decision = (c1 > c0) (a tie keeps p = 0);
 //   pm' = new - new[state 0] (re-zero against state 0, not the max).
-// The signs are +/-1, so every product is exact and an FMA contraction
-// rounds exactly as a multiply then an add: -fmad=false is not needed.
-// The metrics are re-zeroed lazily: a step stores the new metrics as they
-// are and the next step subtracts state 0's entry when it reads them,
-// which is the same float subtraction the Pallas kernel does at the end
-// of the step.  Traceback (ops/fec._make_back): the bit of step t is
-// (s >> (K-2)) & 1, then s = ((s << 1) & (S-1)) | dec[t][s]; the start is
-// state 0 (terminate) or the first maximum of the final metrics.
+// The signs are +/-1, so every product is exact and a fused multiply-add
+// rounds as the plain version's multiply then add.  For n = 2 (every
+// preset) a lane keeps its butterflies' signs as floats; for other n as
+// bits of one word per butterfly, flipping the LLR's sign bit, which is
+// the product exactly.  The metrics are re-zeroed lazily: a step keeps
+// the new metrics as they are and the next step subtracts state 0's entry
+// when it reads them, the same float subtraction the plain version does
+// at the end of the step (step 0 reads pm0 as it is).  Traceback
+// (ops/fec._make_back): the bit of step t is (s >> (K-2)) & 1, then s =
+// ((s << 1) & (S-1)) | dec[t][s]; the start is state 0 (terminate) or the
+// first maximum of the final metrics, a NaN counting as the maximum as in
+// torch.argmax (psk::takes_max).
 //
-// Design (first version: simple and right).  A thread block holds
-// R = NT / S decode rows with one thread per (row, state), NT =
-// max(S, 256) threads, thread id = state * R + row.  The metrics
-// ping-pong between two NT-float arrays in shared memory, one
-// __syncthreads per step.  B2 packs each step's decisions with
-// __ballot_sync into shared memory (one bit per thread and step, NT/8
-// bytes a step), then one thread per row walks the traceback there.  B3
-// writes each decision as an int8 to (T_pad, S, B).  B4 runs one thread
-// per row, a chain of dependent loads through the decision plane.
+// Design (B2 and B3 share one ACS core, acs_steps).  A decode row's states
+// live in the registers of one warp: the row takes L = min(32, S/2) lanes
+// and lane l holds the Q = S/L states l + L*q (K7: lanes 0-31, states l
+// and l+32; K <= 6: 64/S rows share a warp, the shuffles' width set to L;
+// K8-K10: 4, 8 or 16 states a lane).  Lane l computes the butterflies j =
+// l + L*m: their predecessors 2j and 2j+1 come from lanes (2l) mod L and
+// (2l+1) mod L by __shfl_sync (both slots are shuffled and the lane
+// selects, so no register index depends on the lane), and state 0's
+// metric for the re-zero by one more shuffle.  The per-step loop has no
+// block barrier and reads nothing from device memory: a block of W
+// consecutive rows stages its (n, Tc, W) LLR tile in shared memory with
+// cp.async, double-buffered, the copy of chunk c+1 running under the ACS
+// of chunk c, one __syncthreads a chunk.  The next step's branch metrics
+// are formed during a step from LLRs loaded a step earlier still, so no
+// shared-memory load waits on the chain.  A lane gathers its own decision
+// bits in registers and stores one word per state and 32-step group (S/32
+// words a row and step: 8 bytes a step at K7; a chunk that ends inside a
+// group leaves the lane's word part-filled and the next chunk ORs in the
+// rest), so the step has no ballot and no store.
+//   B2 keeps every step's words in shared memory; after the ACS each row's
+//   warp finds its start state by a shuffle reduction, and one thread per
+//   row (one warp per block at K7) walks the traceback there.
+//   B3 double-buffers one chunk of words: 4 writer warps a block stage the
+//   next chunk's LLRs and write the previous chunk's words to (T_pad, S,
+//   B) as bytes, rows fastest, in contiguous pieces of W bytes (4-byte
+//   stores where B % 4 == 0), while the ACS warps run the current chunk.
+// B4 runs one thread per row, a chain of dependent loads through the
+// decision plane (unchanged from its first version).
 //
-// What bounds them on an H100.  B2 at the chain shape (K7, n 2, 64 steps,
-// 6144 rows) moves 5 MB (1.5 us at 3.35 TB/s) and does about 11 operations
-// per (step, row, state), 277 M in all (4 us at the 67 TFLOP/s of float32
-// outside the tensor cores): operations bound it.  The ACS is a serial
-// chain over time with one block-wide barrier per step, so the kernel is
-// bound in practice by that barrier and shared-memory latency; enough
-// independent rows (1536 blocks at the chain shape) keep the SMs busy.
-// B3 is bound by the int8 decision plane it writes (T * S bytes a row);
-// B4 by the latency of its dependent loads, one per step.
+// What bounds them on an H100.  By the roofline, B2 at the chain shape
+// (K7, n 2, 64 steps, 6144 rows) is bound by operations (about 11 per
+// step, row and state: 277 M, 4 us at 67 TFLOP/s) and B3 at K7, 512 rows
+// x 4096 steps by the bytes of its decision plane (134 MB, 40 us at 3.35
+// TB/s).  But a row's steps form a dependent chain: a shuffle (some 25
+// cycles), then a select, the re-zero, the add, the compare and the
+// select (about 5 cycles each), some 55-66 cycles a step, so B3's 4096
+// steps take at least 4096 x 55-66 / 1.98 GHz (the H100 SXM's boost
+// clock) = 0.11-0.14 ms whatever the row count.  In the kernel a step
+// takes about 200 cycles: B3's 512 rows are 64 blocks, one an SM, and one
+// block of 8 rows alone takes nearly as long (0.40 against 0.43 ms,
+// tools/viterbi_times.py), so the step's latency inside a block bounds it:
+// two ACS warps and a writer warp share each scheduler, and writing the
+// decision plane keeps the writer warps about as busy as the ACS.  B2's
+// 6144 warps are bound by the issue rate, about 45 instructions a warp
+// and step.
+// ptxas (-Xptxas -v, printed by chip_smoke.py phase 2): no instantiation
+// spills; B2 at K7 takes 38 registers (6 blocks an SM, the chain shape in
+// one wave), B3 at K7 78.
 //
-// The fused path needs t_actual * NT / 8 + 8 * NT bytes of shared memory
-// per block and takes at most kFusedSmem of it, the default limit (no
-// opt-in); longer trellises go to B3 + B4 (the Python dispatch applies the
-// same rule, psk_soft_tpu_torch/ops/cuda/viterbi_kernel.fused_smem_bytes).
+// The launch plan (make_plan, and its twin launch_plan in
+// psk_soft_tpu_torch/ops/cuda/viterbi_kernel.py) sizes the blocks: B2
+// starts from 8 warps a block (at most 64 rows), B3 from kAcsRows rows (W
+// = 8 measured faster than 4 and 16) and kWriterWarps writer warps (4
+// measured faster than 2 and 8), chunks of up to 64 steps; where that
+// overflows the 48 KB of shared memory a block has without opting in, it
+// halves the warps a block, then the chunk.  B2 takes trellises of up to
+// kFusedMaxSteps steps (kFusedMaxStepsK10 at K10), within which the plan
+// fits at every n; the callers send longer ones to B3 + B4, so which path
+// a decode takes does not depend on the blocks' sizes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr int kMaxN = 8;            // code outputs per trellis step
-constexpr int kMinThreads = 256;    // threads per block when S <= 256
 constexpr int kMaxK = 10;           // 512 states
-constexpr int kFusedSmem = 48 * 1024;
-
-inline int threads_for(int S) { return S > kMinThreads ? S : kMinThreads; }
+constexpr int kSmemLimit = 48 * 1024;
+constexpr int kMaxChunk = 64;       // trellis steps per staged chunk
+constexpr int kSlack = 2;           // steps past a chunk the look-ahead reads
+constexpr int kFusedWarps = 8;      // B2: warps a block ...
+constexpr int kFusedMaxRows = 64;   // ... and at most this many rows
+constexpr int kFusedMaxSteps = 1472;     // B2's longest trellis, K <= 9 ...
+constexpr int kFusedMaxStepsK10 = 704;   // ... and at K10
+constexpr int kAcsRows = 8;         // B3: rows a block
+constexpr int kWriterWarps = 4;     // B3: warps that stage and write out
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* llr;     // (n, T_pad, B)
@@ -74,101 +121,484 @@ struct Params {
   int n, S, k, T_pad, t_actual, B, terminate;
 };
 
-template <bool kFused>
-__global__ void viterbi_acs_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int NT = blockDim.x;
-  const int S = p.S;
-  const int R = NT / S;
-  const int tid = threadIdx.x;
-  const int s = tid / R;
-  const int r = tid - s * R;
-  const int b = blockIdx.x * R + r;
-  const bool valid = b < p.B;
-  float* buf0 = smem;
-  float* buf1 = smem + NT;
-  uint32_t* decw = reinterpret_cast<uint32_t*>(smem + 2 * NT);
-  const int words = NT / 32;            // decision words per step (B2)
+struct Plan {
+  int lanes;            // lanes a row: min(32, S/2)
+  int rows_per_warp;    // 32 / lanes
+  int warps;            // ACS warps a block (B3 adds kWriterWarps)
+  int rows;             // rows a block, W = warps * rows_per_warp
+  int chunk;            // trellis steps a staged LLR chunk, Tc
+  int smem;             // dynamic shared memory a block, bytes
+  int grid;             // blocks
+  int threads;          // threads a block
+};
 
-  const int half = S / 2;
-  const int a = s / half;
-  const int j = s - a * half;
-  const int q0 = (2 * j) * R + r;       // predecessor 2j of this row
-  const int q1 = q0 + R;                // predecessor 2j + 1
-  float e0[kMaxN], e1[kMaxN];
-#pragma unroll
-  for (int i = 0; i < kMaxN; ++i) {
-    e0[i] = i < p.n ? p.exp[(a * S + 2 * j) * p.n + i] : 0.f;
-    e1[i] = i < p.n ? p.exp[(a * S + 2 * j + 1) * p.n + i] : 0.f;
+bool bad_code(int n, int S, int k) {
+  return n < 1 || n > kMaxN || k < 2 || k > kMaxK || S != (1 << (k - 1));
+}
+
+int fused_max_steps(int S) {
+  return S > 256 ? kFusedMaxStepsK10 : kFusedMaxSteps;
+}
+
+// Shared memory: the decision words (B2: every step; B3: two buffers of
+// one chunk) then the LLR buffers (two when the trellis has more than one
+// chunk).
+int64_t plan_smem(bool fused, int S, int n, int t, int warps, int rows,
+                  int chunk) {
+  const int lanes = S / 2 < 32 ? S / 2 : 32;
+  const int64_t slots = S / lanes;
+  const int64_t word_steps = ((int64_t)(fused ? t : chunk) + 31) / 32 * 32;
+  const int64_t word_buffers = fused ? 1 : 2;
+  const int64_t buffers = t > chunk ? 2 : 1;
+  return word_buffers * word_steps * warps * slots * 4
+         + buffers * n * (chunk + kSlack) * rows * 4;
+}
+
+// 0 and *pl filled, or cudaErrorInvalidValue for a launch the kernels do
+// not take.
+int make_plan(bool fused, int S, int n, int t, int B, Plan* pl) {
+  if (S < 2 || S > (1 << (kMaxK - 1)) || (S & (S - 1)) || n < 1
+      || n > kMaxN || t < 0 || B < 0 || (fused && t > fused_max_steps(S)))
+    return (int)cudaErrorInvalidValue;
+  pl->lanes = S / 2 < 32 ? S / 2 : 32;
+  pl->rows_per_warp = 32 / pl->lanes;
+  const int rows = fused ? (kFusedWarps * pl->rows_per_warp < kFusedMaxRows
+                                ? kFusedWarps * pl->rows_per_warp
+                                : kFusedMaxRows)
+                         : kAcsRows;
+  pl->warps = rows / pl->rows_per_warp;
+  if (pl->warps < 1) pl->warps = 1;
+  // Up to 64 steps a chunk; over the budget, halve the warps, then the
+  // chunk.
+  pl->chunk = t < kMaxChunk ? (t > 0 ? t : 1) : kMaxChunk;
+  int64_t smem;
+  while ((smem = plan_smem(fused, S, n, t, pl->warps,
+                           pl->warps * pl->rows_per_warp, pl->chunk))
+         > kSmemLimit) {
+    if (pl->warps > 1)
+      pl->warps /= 2;
+    else if (pl->chunk > 1)
+      pl->chunk /= 2;
+    else
+      return (int)cudaErrorInvalidValue;
   }
+  pl->rows = pl->warps * pl->rows_per_warp;
+  pl->smem = (int)smem;
+  pl->grid = (B + pl->rows - 1) / pl->rows;
+  pl->threads = (pl->warps + (fused ? 0 : kWriterWarps)) * 32;
+  return 0;
+}
 
-  buf0[tid] = valid ? p.pm0[(size_t)s * p.B + b] : 0.f;
-  __syncthreads();
-  float mine = buf0[tid];               // the metrics if t_actual == 0
-  for (int t = 0; t < p.t_actual; ++t) {
-    const float* cur = (t & 1) ? buf1 : buf0;
-    float* nxt = (t & 1) ? buf0 : buf1;
-    const float z = t == 0 ? 0.f : cur[r];          // state 0 of the row
-    const float pa = cur[q0] - z;
-    const float pb = cur[q1] - z;
-    float bm0 = 0.f, bm1 = 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool copy) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(copy ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copy of steps [t0, t0 + len) of the block's rows into `buf`,
+// laid out [i][step][row] with chunk + kSlack steps per i, by threads tid
+// of nthreads; rows past B read 0.
+__device__ void stage_llr(const Params& p, float* buf, int t0, int len,
+                          int chunk, int rows, int b0, int tid,
+                          int nthreads) {
+  const int total = p.n * len * rows;
+  for (int e = tid; e < total; e += nthreads) {
+    const int r = e % rows;
+    const int rest = e / rows;
+    const int tt = rest % len;
+    const int i = rest / len;
+    const bool in = b0 + r < p.B;
+    const float* src =
+        in ? p.llr + ((size_t)i * p.T_pad + t0 + tt) * p.B + b0 + r : p.llr;
+    cp_async4(buf + (i * (chunk + kSlack) + tt) * rows + r, src, in);
+  }
+  cp_async_commit();
+}
+
+// e*l for e = +/-1: l with its sign bit flipped where bit `bit` of w is
+// set, which is the product exactly.
+__device__ __forceinline__ float signed_llr(float l, uint32_t w, int bit) {
+  return __int_as_float(__float_as_int(l) ^ (((w >> bit) & 1u) << 31));
+}
+
+// The signs of one lane's butterflies j = l + L*m, branch br = 2a + p
+// (butterfly row a*S + 2j + p).  N > 0 (n = N, the presets' n = 2): floats
+// e[m][br][i] = +/-1, one product or fused add a term (exact: e*l is).
+// N == 0 (any n): bit 8*br + i of one word per butterfly, set where the
+// sign is -1, flipped into the LLR.
+template <int Q, int N>
+struct Signs {
+  static constexpr int J = Q / 2;
+  float e[J][4][N > 0 ? N : 1];
+  uint32_t w[J];
+
+  __device__ __forceinline__ void load(const Params& p, int l, int lanes) {
 #pragma unroll
-    for (int i = 0; i < kMaxN; ++i) {
-      if (i < p.n) {
-        const float l =
-            valid ? p.llr[((size_t)i * p.T_pad + t) * p.B + b] : 0.f;
-        if (i == 0) {
-          bm0 = e0[0] * l;
-          bm1 = e1[0] * l;
+    for (int m = 0; m < J; ++m) {
+      const int j = l + lanes * m;
+      w[m] = 0;
+#pragma unroll
+      for (int br = 0; br < 4; ++br) {
+        const float* row =
+            p.exp + (size_t)((br >> 1) * p.S + 2 * j + (br & 1)) * p.n;
+        if constexpr (N > 0) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) e[m][br][i] = row[i];
         } else {
-          bm0 = bm0 + e0[i] * l;
-          bm1 = bm1 + e1[i] * l;
+          for (int i = 0; i < p.n; ++i)
+            if (row[i] < 0.f) w[m] |= 1u << (8 * br + i);
         }
       }
     }
-    const float c0 = pa + bm0;
-    const float c1 = pb + bm1;
-    const bool d = c1 > c0;
-    nxt[tid] = d ? c1 : c0;
-    if (kFused) {
-      const uint32_t w = __ballot_sync(0xffffffffu, d);
-      if ((tid & 31) == 0) decw[t * words + (tid >> 5)] = w;
-    } else if (valid) {
-      p.dec[((size_t)t * S + s) * p.B + b] = (int8_t)d;
-    }
-    __syncthreads();
-  }
-  if (p.t_actual > 0) {
-    const float* last = (p.t_actual & 1) ? buf1 : buf0;
-    mine = last[tid] - last[r];
-  }
-  if (!kFused) {
-    if (valid) p.pm_out[(size_t)s * p.B + b] = mine;
-    return;
   }
 
-  // Final metrics where the traceback thread of the row can read them:
-  // the buffer the last step read from is free again.
-  float* fin = (p.t_actual & 1) ? buf0 : buf1;
-  fin[tid] = mine;
-  __syncthreads();
-  if (s != 0 || !valid) return;
-  int st = 0;
-  if (!p.terminate) {                   // first maximum, as jnp.argmax
-    float best = fin[r];
-    for (int q = 1; q < S; ++q) {
-      const float v = fin[q * R + r];
-      if (v > best) {
-        best = v;
-        st = q;
+  // The LLRs of one step, l_i at lp[i * stride] (N > 0).
+  __device__ __forceinline__ void load_llrs(float (&lv)[N > 0 ? N : 1],
+                                            const float* lp,
+                                            int stride) const {
+#pragma unroll
+    for (int i = 0; i < (N > 0 ? N : 1); ++i) lv[i] = lp[i * stride];
+  }
+
+  // Branch metrics from a step's LLRs (N > 0): e_0*l_0, then + e_i*l_i
+  // in order, as the plain version sums them.
+  __device__ __forceinline__ void combine(float (&bm)[J][4],
+                                          const float (&lv)[N > 0 ? N : 1])
+      const {
+#pragma unroll
+    for (int m = 0; m < J; ++m)
+#pragma unroll
+      for (int br = 0; br < 4; ++br) {
+        float s = e[m][br][0] * lv[0];
+#pragma unroll
+        for (int i = 1; i < N; ++i) s = s + e[m][br][i] * lv[i];
+        bm[m][br] = s;
+      }
+  }
+
+  // Branch metrics of one step straight from shared memory (N == 0, any
+  // n), in the same order.
+  __device__ __forceinline__ void metrics(float (&bm)[J][4], const float* lp,
+                                          int stride, int n) const {
+    const float l0 = lp[0];
+#pragma unroll
+    for (int m = 0; m < J; ++m)
+#pragma unroll
+      for (int br = 0; br < 4; ++br)
+        bm[m][br] = signed_llr(l0, w[m], 8 * br);
+    for (int i = 1; i < n; ++i) {
+      const float li = lp[i * stride];
+#pragma unroll
+      for (int m = 0; m < J; ++m)
+#pragma unroll
+        for (int br = 0; br < 4; ++br)
+          bm[m][br] = bm[m][br] + signed_llr(li, w[m], 8 * br + i);
+    }
+  }
+};
+
+// Where a lane sits: its row's lanes, row in the warp, lane in the row,
+// row in the block, row, warp.
+struct Lane {
+  int lanes, rr, l, rb, b, wp;
+  bool valid;
+};
+
+// The ACS core: `len` steps of one lane's states from the staged LLRs
+// (`cur`, [i][step][row], `stride` floats per i, two steps of slack past
+// the chunk).  pm holds the lane's metrics as they are (not re-zeroed), z
+// state 0's metric to subtract (0 before step 0).  The branch metrics of
+// the next step are formed during this one, from LLRs loaded a step
+// earlier still (n = 2), so no shared-memory load sits on the chain; the
+// look-ahead reads into the slack past the chunk's end.  Each lane gathers
+// its own decision bits, bit (step0 + step) % 32 of word ((group * warps +
+// wp) * 32 + lane) * Q + q for group (step0 + step) / 32, in acc[q] and
+// stores them once a group, or once for the part of a group the chunk
+// holds (OR-ed into the word when the group began in an earlier chunk).
+template <int Q, int N>
+__device__ __forceinline__ void acs_steps(const Lane& ln, float (&pm)[Q],
+                                          float& z, const Signs<Q, N>& sg,
+                                          const float* cur, int stride,
+                                          int rows, int n, int len,
+                                          uint32_t* words, int step0,
+                                          int warps) {
+  constexpr int J = Q / 2;
+  const int src0 = 2 * ln.l, src1 = 2 * ln.l + 1;
+  const bool h0 = src0 >= ln.lanes, h1 = src1 >= ln.lanes;
+  const float* lp = cur + ln.rb;
+  uint32_t* wlane = words + (ln.wp * 32 + (threadIdx.x & 31)) * Q;
+  float bm[J][4];
+  float lv[N > 0 ? N : 1];
+  if constexpr (N > 0) {
+    sg.load_llrs(lv, lp, stride);
+    sg.combine(bm, lv);
+    sg.load_llrs(lv, lp + rows, stride);
+    lp += 2 * rows;                         // the step after next
+  } else {
+    sg.metrics(bm, lp, stride, n);
+    lp += rows;                             // the next step
+  }
+  for (int g0 = 0; g0 < len;) {
+    const int off = (step0 + g0) & 31;     // the group's steps before g0
+    const int cnt = len - g0 < 32 - off ? len - g0 : 32 - off;
+    uint32_t acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = 0;
+    for (int i = 0; i < cnt; ++i) {
+      float nw[Q];
+      bool d[Q];
+#pragma unroll
+      for (int m = 0; m < J; ++m) {
+        const float a0 = __shfl_sync(kFull, pm[2 * m], src0, ln.lanes);
+        const float a1 = __shfl_sync(kFull, pm[2 * m + 1], src0, ln.lanes);
+        const float b0 = __shfl_sync(kFull, pm[2 * m], src1, ln.lanes);
+        const float b1 = __shfl_sync(kFull, pm[2 * m + 1], src1, ln.lanes);
+        const float pa = (h0 ? a1 : a0) - z;
+        const float pb = (h1 ? b1 : b0) - z;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const float c0 = pa + bm[m][2 * a];
+          const float c1 = pb + bm[m][2 * a + 1];
+          d[m + a * J] = c1 > c0;
+          nw[m + a * J] = d[m + a * J] ? c1 : c0;
+        }
+      }
+      if constexpr (N > 0) {                // the next step's metrics
+        sg.combine(bm, lv);
+        sg.load_llrs(lv, lp, stride);
+      } else {
+        sg.metrics(bm, lp, stride, n);
+      }
+      lp += rows;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        pm[q] = nw[q];
+        acc[q] = (acc[q] >> 1) | (d[q] ? 0x80000000u : 0u);
+      }
+      z = __shfl_sync(kFull, pm[0], 0, ln.lanes);
+    }
+    uint32_t* dst = wlane + ((step0 + g0) >> 5) * warps * 32 * Q;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const uint32_t bits = acc[q] >> (32 - cnt) << off;
+      dst[q] = off ? dst[q] | bits : bits;
+    }
+    g0 += cnt;
+  }
+}
+
+// B3's write-out of one chunk's words (acs_steps' layout) to (T_pad, S,
+// B), rows fastest, by threads tid of nthreads.  Task (32-step group,
+// state, 4 rows) takes the 4 rows' words of that state and walks the
+// group's steps: one 4-byte store a step where B % 4 == 0, else bytes.
+template <int Q>
+__device__ void write_decisions(const Params& p, const Plan& pl,
+                                const uint32_t* words, int t0, int len,
+                                int b0, int tid, int nthreads) {
+  const int S = p.S;
+  const int groups4 = (pl.rows + 3) / 4;
+  const bool vec = (p.B & 3) == 0 && (pl.rows & 3) == 0;
+  const int tasks = ((len + 31) >> 5) * S * groups4;
+  const size_t step_stride = (size_t)S * p.B;
+  for (int u = tid; u < tasks; u += nthreads) {
+    const int g = u % groups4;
+    const int s = (u / groups4) % S;
+    const int gi = u / groups4 / S;
+    const int q = s / pl.lanes;
+    uint32_t w4[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = 4 * g + k;
+      const int wpr = r / pl.rows_per_warp;
+      const int lane_r =
+          (r - wpr * pl.rows_per_warp) * pl.lanes + s - q * pl.lanes;
+      w4[k] = r < pl.rows
+                  ? words[((gi * pl.warps + wpr) * 32 + lane_r) * Q + q]
+                  : 0u;
+    }
+    const int steps_here = len - 32 * gi < 32 ? len - 32 * gi : 32;
+    int8_t* dst =
+        p.dec + ((size_t)(t0 + 32 * gi) * S + s) * p.B + b0 + 4 * g;
+    const bool full = vec && b0 + 4 * g < p.B;
+    for (int i = 0; i < steps_here; ++i, dst += step_stride) {
+      const uint32_t out = (w4[0] & 1u) | (w4[1] & 1u) << 8
+                           | (w4[2] & 1u) << 16 | (w4[3] & 1u) << 24;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w4[k] >>= 1;
+      if (full) {
+        *reinterpret_cast<uint32_t*>(dst) = out;
+      } else {
+        for (int k = 0; k < 4; ++k)
+          if (4 * g + k < pl.rows && b0 + 4 * g + k < p.B)
+            dst[k] = (int8_t)((out >> (8 * k)) & 1u);
       }
     }
   }
-  for (int t = p.t_actual - 1; t >= 0; --t) {
-    p.bits[(size_t)t * p.B + b] = (int8_t)((st >> (p.k - 2)) & 1);
-    const int q = st * R + r;
-    const uint32_t d = (decw[t * words + (q >> 5)] >> (q & 31)) & 1u;
-    st = ((st << 1) & (S - 1)) | (int)d;
+}
+
+// One row's first maximum over its lanes: (value, state), a NaN counting
+// as the maximum and the lower state winning a tie, as torch.argmax.
+__device__ __forceinline__ bool first_of(float a, int ia, float b, int ib) {
+  if (a != a) return b != b ? ia < ib : true;
+  if (b != b) return false;
+  return a == b ? ia < ib : a > b;
+}
+
+// Launch bounds: B2 runs up to 8 warps a block, 6 blocks an SM at K7 (the
+// chain shape's 768 blocks in one wave); B3 up to 8 ACS warps and its
+// writer warps.
+template <int Q, int N, bool kFused>
+__global__ void __launch_bounds__(
+    (kFused ? kFusedWarps : kAcsRows + kWriterWarps) * 32,
+    kFused && Q == 2 ? 6 : 1)
+    viterbi_warp_kernel(const Params p, const Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  Lane ln;
+  ln.lanes = pl.lanes;
+  ln.wp = threadIdx.x >> 5;
+  ln.rr = lane / pl.lanes;
+  ln.l = lane - ln.rr * pl.lanes;
+  ln.rb = ln.wp * pl.rows_per_warp + ln.rr;
+  const int b0 = blockIdx.x * pl.rows;
+  ln.b = b0 + ln.rb;
+  ln.valid = ln.b < p.B && ln.wp < pl.warps;
+  const int S = p.S, n = p.n, steps = p.t_actual, chunk = pl.chunk;
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
+  float* llr_buf = reinterpret_cast<float*>(
+      smem + (size_t)(kFused ? 1 : 2)
+                 * (((kFused ? steps : chunk) + 31) / 32 * 32) * pl.warps * Q
+                 * 4);
+  const int stride = (chunk + kSlack) * pl.rows;   // floats per output i
+  const int llr_stride = n * stride;        // floats per buffer
+
+  Signs<Q, N> sg;
+  sg.load(p, ln.l, pl.lanes);
+  float pm[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    pm[q] = ln.valid ? p.pm0[(size_t)(ln.l + pl.lanes * q) * p.B + ln.b]
+                     : 0.f;
+
+  float z = 0.f;
+  const int nchunks = (steps + chunk - 1) / chunk;
+  if constexpr (kFused) {
+    // Every thread stages; the copy of chunk ci+1 runs under chunk ci.
+    if (steps > 0)
+      stage_llr(p, llr_buf, 0, steps < chunk ? steps : chunk, chunk,
+                pl.rows, b0, threadIdx.x, blockDim.x);
+    for (int ci = 0; ci < nchunks; ++ci) {
+      const int c0 = ci * chunk;
+      cp_async_wait_all();
+      __syncthreads();  // chunk ci staged, chunk ci-1's buffer free
+      if (c0 + chunk < steps)
+        stage_llr(p, llr_buf + ((ci + 1) & 1) * llr_stride, c0 + chunk,
+                  steps - c0 - chunk < chunk ? steps - c0 - chunk : chunk,
+                  chunk, pl.rows, b0, threadIdx.x, blockDim.x);
+      acs_steps<Q, N>(ln, pm, z, sg, llr_buf + (ci & 1) * llr_stride, stride,
+                      pl.rows, n, steps - c0 < chunk ? steps - c0 : chunk,
+                      words, c0, pl.warps);
+    }
+  } else {
+    // The writer warps stage chunk ci+1 and write out chunk ci-1 while the
+    // ACS warps run chunk ci: one barrier a chunk, two word buffers.
+    const int word_stride = (chunk + 31) / 32 * 32 * pl.warps * Q;
+    const bool writer = ln.wp >= pl.warps;
+    const int wt = threadIdx.x - pl.warps * 32;
+    const int nwt = kWriterWarps * 32;
+    if (writer && steps > 0) {
+      stage_llr(p, llr_buf, 0, steps < chunk ? steps : chunk, chunk, pl.rows,
+                b0, wt, nwt);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    for (int ci = 0; ci <= nchunks; ++ci) {
+      const int c0 = ci * chunk;
+      if (!writer) {
+        if (ci < nchunks)
+          acs_steps<Q, N>(ln, pm, z, sg, llr_buf + (ci & 1) * llr_stride,
+                          stride, pl.rows, n,
+                          steps - c0 < chunk ? steps - c0 : chunk,
+                          words + (ci & 1) * word_stride, 0, pl.warps);
+      } else {
+        if (ci + 1 < nchunks)
+          stage_llr(p, llr_buf + ((ci + 1) & 1) * llr_stride, c0 + chunk,
+                    steps - c0 - chunk < chunk ? steps - c0 - chunk : chunk,
+                    chunk, pl.rows, b0, wt, nwt);
+        if (ci > 0)
+          write_decisions<Q>(p, pl, words + ((ci - 1) & 1) * word_stride,
+                             c0 - chunk,
+                             steps - c0 + chunk < chunk ? steps - c0 + chunk
+                                                        : chunk,
+                             b0, wt, nwt);
+        cp_async_wait_all();
+      }
+      __syncthreads();  // chunk ci done and ci+1 staged; ci-1 written
+    }
+  }
+
+  // Final metrics, re-zeroed (pm0 itself when there were no steps).
+  float fin[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) fin[q] = steps > 0 ? pm[q] - z : pm[q];
+  if (!kFused) {
+    if (ln.valid)
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        p.pm_out[(size_t)(ln.l + pl.lanes * q) * p.B + ln.b] = fin[q];
+    return;
+  }
+
+  // The start states (B2): state 0, or each row's first maximum from a
+  // reduction over its lanes, through shared memory (the LLR buffers are
+  // free now) to one thread per row, which walks the row's words.
+  int* starts = reinterpret_cast<int*>(llr_buf);
+  int start = 0;
+  if (!p.terminate) {
+    float best = fin[0];
+    int idx = ln.l;
+#pragma unroll
+    for (int q = 1; q < Q; ++q)
+      if (psk::takes_max(fin[q], best)) {
+        best = fin[q];
+        idx = ln.l + pl.lanes * q;
+      }
+    for (int off = pl.lanes / 2; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, off, pl.lanes);
+      const int oi = __shfl_xor_sync(kFull, idx, off, pl.lanes);
+      if (first_of(ob, oi, best, idx)) {
+        best = ob;
+        idx = oi;
+      }
+    }
+    start = idx;
+  }
+  __syncthreads();  // every warp is past its last read of the LLR buffers
+  if (ln.l == 0) starts[ln.rb] = start;
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= pl.rows || b0 + r >= p.B) return;
+  const int lg = __ffs(pl.lanes) - 1;      // lanes is a power of two
+  const int wpr = r / pl.rows_per_warp;
+  const uint32_t* rw =
+      words + (wpr * 32 + (r - wpr * pl.rows_per_warp) * pl.lanes) * Q;
+  const int gstride = pl.warps * 32 * Q;
+  int st = starts[r];
+  int8_t* out = p.bits + b0 + r;
+  for (int t = steps - 1; t >= 0; --t) {
+    out[(size_t)t * p.B] = (int8_t)((st >> (p.k - 2)) & 1);
+    const uint32_t w =
+        rw[(t >> 5) * gstride + (st & (pl.lanes - 1)) * Q + (st >> lg)];
+    st = ((st << 1) & (S - 1)) | (int)((w >> (t & 31)) & 1u);
   }
 }
 
@@ -186,34 +616,65 @@ __global__ void viterbi_traceback_kernel(const int8_t* __restrict__ dec,
   }
 }
 
-bool bad_code(int n, int S, int k) {
-  return n < 1 || n > kMaxN || k < 2 || k > kMaxK || S != (1 << (k - 1));
+template <int N, bool kFused>
+int launch_q(const Params& p, const Plan& pl, cudaStream_t st) {
+  const int threads = pl.threads;
+  switch (p.S / pl.lanes) {
+    case 2:
+      viterbi_warp_kernel<2, N, kFused><<<pl.grid, threads, pl.smem, st>>>(
+          p, pl);
+      break;
+    case 4:
+      viterbi_warp_kernel<4, N, kFused><<<pl.grid, threads, pl.smem, st>>>(
+          p, pl);
+      break;
+    case 8:
+      viterbi_warp_kernel<8, N, kFused><<<pl.grid, threads, pl.smem, st>>>(
+          p, pl);
+      break;
+    default:
+      viterbi_warp_kernel<16, N, kFused><<<pl.grid, threads, pl.smem, st>>>(
+          p, pl);
+  }
+  return (int)cudaGetLastError();
 }
 
 int launch_acs(bool fused, const Params& p, void* stream) {
   if (bad_code(p.n, p.S, p.k) || p.t_actual < 0 || p.t_actual > p.T_pad)
     return (int)cudaErrorInvalidValue;
-  const int nt = threads_for(p.S);
-  const int rows = nt / p.S;
-  size_t smem = (size_t)2 * nt * sizeof(float);
-  if (fused) smem += (size_t)p.t_actual * (nt / 32) * sizeof(uint32_t);
-  if (smem > (size_t)kFusedSmem) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  const int rc = make_plan(fused, p.S, p.n, p.t_actual, p.B, &pl);
+  if (rc != 0) return rc;
   if (p.B == 0) return 0;
-  const int blocks = (p.B + rows - 1) / rows;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fused)
-    viterbi_acs_kernel<true><<<blocks, nt, smem, st>>>(p);
-  else
-    viterbi_acs_kernel<false><<<blocks, nt, smem, st>>>(p);
-  return (int)cudaGetLastError();
+  // n = 2 (every preset, punctured or not) keeps its signs as floats.
+  if (p.n == 2)
+    return fused ? launch_q<2, true>(p, pl, st) : launch_q<2, false>(p, pl, st);
+  return fused ? launch_q<0, true>(p, pl, st) : launch_q<0, false>(p, pl, st);
 }
 
 }  // namespace
 
+// The launch plan of B2 (fused 1) or B3 (fused 0) for S states, n outputs,
+// t steps and B rows: out[0..7] = lanes a row, rows a warp, ACS warps,
+// rows a block, chunk, shared-memory bytes, grid, threads a block.
+// Returns 0, or an error code for a launch the kernels refuse (the same
+// rule the launches apply).
+extern "C" int psk_viterbi_plan(int fused, int S, int n, int t, int B,
+                                int32_t* out) {
+  Plan pl;
+  const int rc = make_plan(fused != 0, S, n, t, B, &pl);
+  if (rc != 0) return rc;
+  const int v[8] = {pl.lanes, pl.rows_per_warp, pl.warps, pl.rows,
+                    pl.chunk, pl.smem, pl.grid, pl.threads};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
 // B2.  llr (n, T_pad, B), pm0 (S, B), exp (2S, n) -> bits (T_pad, B), rows
 // [0, t_actual) written.  Launches on `stream`; returns cudaGetLastError()
 // after the launch (0 = launched), or an error code for arguments the
-// kernel does not take (the shared-memory budget included).
+// kernel does not take (a trellis over its envelope included).
 extern "C" int psk_viterbi_fused(const float* llr, const float* pm0,
                                  const float* exp, int8_t* bits, int n, int S,
                                  int k, int T_pad, int t_actual, int B,

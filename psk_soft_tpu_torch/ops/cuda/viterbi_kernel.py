@@ -5,7 +5,10 @@ Three pieces per kernel, as for every kernel of the port:
 
 * ``csrc/viterbi.cu``: the CUDA C++ kernels (its header note says what
   bounds them on an H100), built with nvcc for sm_90a into
-  ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.
+  ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.  B2
+  and B3 share one ACS core: a decode row's states in one warp's
+  registers, LLRs staged ahead in shared memory; :func:`launch_plan` sizes
+  their blocks in Python.
 * The plain-PyTorch versions :func:`viterbi_fused_ref`,
   :func:`viterbi_acs_ref` and :func:`viterbi_traceback_ref`, on any
   device, step by step as the Pallas bodies compute.
@@ -22,25 +25,37 @@ come back zero), and ``t_pad``, ``t_tile``, ``b_tile`` and ``interpret``
 have no counterpart; B needs no lane padding.
 
 :func:`viterbi_decode_kernel` is the twin of ``viterbi_decode_pallas``: the
-fused kernel when the trellis fits its shared-memory budget
-(:func:`fused_fits`, the port's own rule), the two-phase B3 + B4 path
-otherwise or whenever the caller passes ``t_tile``.
+fused kernel when the trellis is within its envelope (:func:`fused_fits`,
+the port's own rule), the two-phase B3 + B4 path otherwise or whenever the
+caller passes ``t_tile``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ...utils.build import REPO_ROOT, build_shared
-from .demod_kernel import NVCC_FLAGS, nvcc_path
+from .demod_kernel import NVCC_FLAGS, TIMING_HEADER, nvcc_path
 
 SOURCE = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "viterbi.cu"
 MAX_N = 8                    # code outputs per step the kernels take
-FUSED_SMEM = 48 * 1024       # shared memory the fused kernel may use
+MAX_K = 10                   # 512 states
+# Constants of csrc/viterbi.cu that the launch plan needs (chip_smoke.py
+# holds the plan against the library's own, psk_viterbi_plan).
+SMEM_LIMIT = 48 * 1024       # shared memory a block, without opting in
+MAX_CHUNK = 64               # trellis steps a staged LLR chunk ...
+SLACK = 2                    # ... and the steps past it the look-ahead reads
+FUSED_WARPS = 8              # B2: warps a block ...
+FUSED_MAX_ROWS = 64          # ... and at most this many rows (K <= 3)
+FUSED_MAX_STEPS = 1472       # B2's longest trellis at K <= 9 ...
+FUSED_MAX_STEPS_K10 = 704    # ... and at K10
+ACS_ROWS = 8                 # B3: rows a block ...
+WRITER_WARPS = 4             # ... and warps that stage and write out
 
 
 def butterfly_signs(code) -> np.ndarray:
@@ -61,19 +76,81 @@ def butterfly_signs(code) -> np.ndarray:
     return flat
 
 
-def fused_smem_bytes(s_count: int, t: int) -> int:
-    """Shared memory of one fused-kernel block: two metric arrays of NT
-    floats and one decision bit per thread and step, NT = max(S, 256)
-    threads (the rule of ``csrc/viterbi.cu``)."""
-    nt = max(s_count, 256)
-    return 8 * nt + t * nt // 8
+class LaunchPlan(NamedTuple):
+    """How one launch of B2 or B3 is sized (``make_plan`` in
+    csrc/viterbi.cu, which refuses the launches this refuses)."""
+    lanes_per_row: int          # min(32, S/2)
+    rows_per_warp: int          # 32 / lanes_per_row
+    warps: int                  # ACS warps a block
+    rows_per_block: int         # W = warps * rows_per_warp
+    chunk: int                  # Tc: trellis steps a staged LLR chunk
+    smem: int                   # dynamic shared memory a block, bytes
+    grid: int                   # blocks
+    threads: int                # threads a block (B3: + WRITER_WARPS)
+
+
+def fused_max_steps(s_count: int) -> int:
+    """The longest trellis the fused kernel takes for ``s_count`` states:
+    1472 steps for K <= 9, 704 at K10.  Longer ones go to B3 + B4, so a
+    decode's path does not depend on how the plan sizes B2's blocks."""
+    return FUSED_MAX_STEPS_K10 if s_count > 256 else FUSED_MAX_STEPS
+
+
+def launch_plan(s_count: int, n: int, t: int, b: int,
+                fused: bool) -> LaunchPlan:
+    """Pure-Python launch plan of :func:`viterbi_fused` (``fused``) or
+    :func:`viterbi_acs` for ``s_count`` states, ``n`` code outputs, ``t``
+    steps and ``b`` rows.  B2 starts from 8 warps a block (at most 64
+    rows), B3 from :data:`ACS_ROWS` rows, each with chunks of up to 64
+    steps; over :data:`SMEM_LIMIT` the plan halves the warps a block, then
+    the chunk.  Raises ValueError for a launch the kernels refuse."""
+    if (s_count < 2 or s_count > 2 ** (MAX_K - 1) or s_count & (s_count - 1)
+            or not 1 <= n <= MAX_N or t < 0 or b < 0):
+        raise ValueError(f"no Viterbi launch for S={s_count}, n={n}, t={t}, "
+                         f"B={b}")
+    if fused and t > fused_max_steps(s_count):
+        raise ValueError(f"{t} steps of {s_count} states: over the fused "
+                         f"kernel's {fused_max_steps(s_count)}")
+    lanes = min(32, s_count // 2)
+    per_warp = 32 // lanes
+    slots = s_count // lanes
+    want = min(FUSED_WARPS * per_warp, FUSED_MAX_ROWS) if fused else ACS_ROWS
+    warps = max(1, want // per_warp)
+
+    def smem(warps, chunk):
+        # Decision words in whole 32-step groups (B2: every step; B3: two
+        # buffers of one chunk), then one LLR buffer, or two when the
+        # trellis has more than one chunk, each with SLACK steps past the
+        # chunk for the look-ahead.
+        word_steps = -(-(t if fused else chunk) // 32) * 32
+        word_buffers = 1 if fused else 2
+        buffers = 2 if t > chunk else 1
+        return 4 * (word_buffers * word_steps * warps * slots
+                    + buffers * n * (chunk + SLACK) * warps * per_warp)
+
+    chunk = min(MAX_CHUNK, max(t, 1))
+    while smem(warps, chunk) > SMEM_LIMIT:
+        if warps > 1:
+            warps //= 2
+        elif chunk > 1:
+            chunk //= 2
+        else:
+            raise ValueError(f"{t} steps of {s_count} states need more than "
+                             f"{SMEM_LIMIT} bytes of shared memory a block")
+    w = warps * per_warp
+    return LaunchPlan(lanes, per_warp, warps, w, chunk, smem(warps, chunk),
+                      -(-b // w), 32 * (warps + (0 if fused else WRITER_WARPS)))
+
+
+def fused_smem_bytes(s_count: int, t: int, n: int = MAX_N) -> int:
+    """Shared memory of one fused-kernel block (:func:`launch_plan`)."""
+    return launch_plan(s_count, n, t, 0, True).smem
 
 
 def fused_fits(s_count: int, t: int) -> bool:
-    """Whether a ``t``-step trellis of ``s_count`` states fits the fused
-    kernel (48 KB of shared memory a block: up to 1472 steps for K <= 9,
-    704 for K = 10)."""
-    return fused_smem_bytes(s_count, t) <= FUSED_SMEM
+    """Whether the fused kernel takes a ``t``-step trellis of ``s_count``
+    states (:func:`fused_max_steps`); its plan then fits at every n."""
+    return 0 <= t <= fused_max_steps(s_count)
 
 
 def _check(llr_t, pm0, exp_flat, *, k, s_count, n, t_actual):
@@ -186,13 +263,16 @@ def viterbi_traceback_ref(dec, start, *, k: int, s_count: int,
 def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
-    path, log = build_shared(SOURCE, "viterbi", [nvcc_path()], NVCC_FLAGS)
+    path, log = build_shared(SOURCE, "viterbi", [nvcc_path()], NVCC_FLAGS,
+                             headers=(TIMING_HEADER,))
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.psk_viterbi_fused.restype = i32
     lib.psk_viterbi_fused.argtypes = [vp] * 4 + [i32] * 7 + [vp]
     lib.psk_viterbi_acs.restype = i32
     lib.psk_viterbi_acs.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.psk_viterbi_plan.restype = i32
+    lib.psk_viterbi_plan.argtypes = [i32] * 5 + [vp]
     lib.psk_viterbi_traceback.restype = i32
     lib.psk_viterbi_traceback.argtypes = [vp] * 3 + [i32] * 4 + [vp]
     return lib, log
@@ -222,8 +302,8 @@ def viterbi_fused(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
     signs -> (T_pad, B) int8 bits, ACS and traceback in one launch.
 
     The traceback starts at state 0 when ``terminate``, else at the first
-    maximum of the final metrics.  Raises ValueError when the trellis does
-    not fit the kernel (:func:`fused_fits`)."""
+    maximum of the final metrics.  Raises ValueError when the kernel does
+    not take the trellis (:func:`fused_fits`)."""
     if llr_t.device.type == "cpu":
         return viterbi_fused_ref(llr_t, pm0, exp_flat, k=k, s_count=s_count,
                                  n=n, t_actual=t_actual, terminate=terminate)
@@ -231,15 +311,15 @@ def viterbi_fused(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
     _check(llr_t, pm0, exp_flat, k=k, s_count=s_count, n=n,
            t_actual=t_actual)
     if not fused_fits(s_count, t_actual):
-        raise ValueError(f"{t_actual} steps of {s_count} states need "
-                         f"{fused_smem_bytes(s_count, t_actual)} bytes of "
-                         f"shared memory, over the fused kernel's "
-                         f"{FUSED_SMEM}; use viterbi_acs + "
-                         f"viterbi_traceback")
+        raise ValueError(f"{t_actual} steps of {s_count} states: over the "
+                         f"fused kernel's {fused_max_steps(s_count)}; use "
+                         f"viterbi_acs + viterbi_traceback")
     _, t_pad, b = llr_t.shape
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        bits = torch.zeros((t_pad, b), dtype=torch.int8, device=dev)
+        bits = torch.empty((t_pad, b), dtype=torch.int8, device=dev)
+        if t_actual < t_pad:
+            bits[t_actual:].zero_()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psk_viterbi_fused(
             _ptr(llr_t), _ptr(pm0), _ptr(exp_flat), _ptr(bits), n, s_count,
@@ -263,7 +343,9 @@ def viterbi_acs(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
     _, t_pad, b = llr_t.shape
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        dec = torch.zeros((t_pad, s_count, b), dtype=torch.int8, device=dev)
+        dec = torch.empty((t_pad, s_count, b), dtype=torch.int8, device=dev)
+        if t_actual < t_pad:
+            dec[t_actual:].zero_()
         pm = torch.empty((s_count, b), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psk_viterbi_acs(
@@ -302,6 +384,14 @@ viterbi_acs.launches = 0
 viterbi_traceback.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _signs_on(code, device: torch.device) -> torch.Tensor:
+    """:func:`butterfly_signs` of ``code`` on ``device``, uploaded once per
+    (code, device): the chain decodes every block with the same code.  One
+    tensor serves every caller, so nothing writes to it."""
+    return torch.as_tensor(butterfly_signs(code), device=device)
+
+
 def decode_planes(code, llrs):
     """The kernels' inputs for decoding (..., L) soft code bits:
     ((n, T, B) LLR planes after depuncturing, (S, B) metrics pinned to
@@ -317,7 +407,7 @@ def decode_planes(code, llrs):
     steps = y.reshape(-1, t, code.n)
     dev = steps.device
     llr_t = steps.permute(2, 1, 0).contiguous()           # (n, T, B)
-    exp = torch.as_tensor(butterfly_signs(code), device=dev)
+    exp = _signs_on(code, dev)
     pm0 = torch.full((code.states, llr_t.shape[2]), -1e9,
                      dtype=torch.float32, device=dev)
     pm0[0] = 0.0
