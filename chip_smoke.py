@@ -18,7 +18,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      differential, debug ports off, int8 soft, and a two-block carry;
      bits and sample_index equal, phase within 2e-3, soft within 3e-3;
      then edges (C = 1000; S in {1, 5, 37, 129} over two blocks; sps 40,
-     the wide timing layout), poison (NaN and +inf planted: equal picks,
+     a shorter staged chunk), poison (NaN and +inf planted: equal picks,
      non-finite values where the plain version's are) and noise (a
      differing sample index only at a near tie, counted);
   4. the engine end to end: NativePlaneBank -> FullKernelBatchEngine on
@@ -40,7 +40,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      8), where its blocks shrink to one or two warps.  (b) The
      fused path against the two-phase path (t_tile given) at the chain
      shape.  (c) B3 + B4 on long trellises (K7 512 rows x 4096 and 4133
-     steps, K9 256 x 1024);
+     steps, K9 256 x 1024); B4 on random planes from starts inside and
+     outside [0, S) (S, S + 5, -1, -7): K3, K7, K9, K10, B = 6145 and 6148
+     (byte and 4-byte copies), t_actual 0 and 1, T_pad > t_actual; plans
+     the kernel did not expect refused;
   7. ChainEngine end to end at 1024 channels x 512 symbols (QPSK, UW 32,
      payload 64, K7, CRC-16, 4 frames per block per channel on an
      unaligned cadence): 1 warm-up block, 10 steady blocks and a flush on
@@ -54,9 +57,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      torch.profiler pass (B2's and B1's device ms per block and share of
      the busy time, host-to-device copies per block);
   9. kernel B5 (csrc/frontend.cu, built with the others in phase 2)
-     against its plain version at 1024 x 512: equal on planted symbols;
-     on pure noise a differing sample index only at a near tie (top two
-     window sums within NEAR_TIE_REL), counted; its times;
+     against its plain version at 1024 x 512: equal on planted symbols,
+     with a NaN and an +inf planted (equal picks, non-finite values where
+     the plain version's are) and at B1's edges (C 1000, S 1/5/37/129,
+     sps 40); on pure noise a differing sample index only at a near tie
+     (top two window sums within NEAR_TIE_REL), counted; its times;
  10. the fused pipeline (models/fused: B5 + the symbol backend), 1 flexible
      + 10 assume_steady blocks, against blockpsk on the same card (bits
      and sample index equal, soft 2e-4, phase 1e-3), and its samples/s
@@ -196,10 +201,11 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-# Kernel names (torch.profiler keys) of B2 and B3 at K7, n = 2, and B4.
+# Kernel names (torch.profiler keys) of B2 and B3 at K7, n = 2, and B4's
+# two passes.
 B2_KERNEL = "viterbi_warp_kernel<2, 2, true>"
 B3_KERNEL = "viterbi_warp_kernel<2, 2, false>"
-B4_KERNEL = "viterbi_traceback_kernel"
+B4_KERNEL = ("viterbi_segments_kernel", "viterbi_resolve_kernel")
 
 B1_STAGES = {"stage_a_timing": "demod_timing", "stage_b_track": "demod_track",
              "first_bad_memset": "Memset"}
@@ -232,10 +238,11 @@ def b1_stage_ms(torch, fn, args_list, iters: int = 20) -> dict:
     return out
 
 
-def kernel_device_ms(torch, fn, name: str, iters: int = 10) -> float:
-    """Device time of the kernels whose name holds ``name``, per call of
-    ``fn``, from one torch.profiler pass over ``iters`` calls (the wrapper's
-    host work is not in it)."""
+def kernel_device_ms(torch, fn, name, iters: int = 10) -> float:
+    """Device time of the kernels whose name holds ``name`` (or one of a
+    tuple of names), per call of ``fn``, from one torch.profiler pass over
+    ``iters`` calls (the wrapper's host work is not in it)."""
+    names = (name,) if isinstance(name, str) else name
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -246,7 +253,8 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(dev_us(e) for e in prof.key_averages()
-             if e.self_cpu_time_total == 0 and name in e.key)
+             if e.self_cpu_time_total == 0
+             and any(n in e.key for n in names))
     if not us:
         raise AssertionError(f"profiler shows no device time for {name}")
     return us / 1e3 / iters
@@ -331,11 +339,12 @@ def b1_blocks(torch, case: dict, state, x_re, x_im, n_sym: int,
     sps, m = kw["sps"], kw["m"]
     n_ch = x_re.shape[1]
     plan = dk.launch_plan(n_ch, n_sym, sps, kw["phase_avg"])
-    lib_smem = tuple(lib.psk_demod_full_smem(stage, sps, kw["phase_avg"],
-                                             plan.chunk) for stage in (0, 1))
-    if lib_smem != (plan.timing_smem, plan.track_smem):
+    lib_smem = (lib.psk_demod_full_smem(0, sps, 0, plan.timing.chunk,
+                                        plan.timing.group),
+                lib.psk_demod_full_smem(1, 0, kw["phase_avg"], plan.chunk, 0))
+    if lib_smem != (plan.timing.smem, plan.track_smem):
         raise AssertionError(f"{case}: plan shared memory "
-                             f"{(plan.timing_smem, plan.track_smem)}, "
+                             f"{(plan.timing.smem, plan.track_smem)}, "
                              f"library {lib_smem}")
     keep = (kw["num_avg"] - 1) * sps
     win = [(state.win_re, state.win_im)] * 2
@@ -358,8 +367,7 @@ def b1_blocks(torch, case: dict, state, x_re, x_im, n_sym: int,
         log(json.dumps({"phase": "kernel_vs_plain", **case,
                         "channels": n_ch, "symbols": n_sym,
                         "blocks": blocks, "chunk": plan.chunk,
-                        "tile": plan.tile,
-                        "timing_layout": plan.timing_layout,
+                        "timing_plan": plan.timing._asdict(),
                         "bits_equal": True,
                         "sample_index_equal": kw.get("debug_ports", True),
                         **errs}))
@@ -373,7 +381,7 @@ def b1_phase(torch, dev) -> float:
     off, int8 soft.  (a) Edges: C = 1000 (not a multiple of any channel
     group), QPSK and differential, one block; S in {1, 5, 37, 129} at C =
     1024 (S < 8 and S < n1 reach into the carry's trend and FIR rows);
-    sps 40 (stage A's wide layout) at C = 256, num_avg 20.  (b) A NaN at
+    sps 40 (stage A's shorter chunks) at C = 256, num_avg 20.  (b) A NaN at
     channel 11's block symbol 300 and +inf at channel 23's symbol 100:
     sample index and bits equal on every channel, NaN and inf where the
     plain version's are.  (c) One pure-noise block: a differing sample
@@ -688,6 +696,63 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
             long_args = (llr_t, pm0, exp, kw, dec, start, tb)
         del dec, dec_r, pm_r, bits, bits_r
 
+    # --- phase 6c (B4's edges): random decision planes, starts inside and
+    # outside [0, S) (S, S + 5, -1, -7 in the first columns); K3, K7, K10;
+    # B = 6145 (byte copies), 6148 (4-byte), 512 (16-byte); t_actual 0, 1
+    # and T_pad > t_actual; then a plan the kernel did not expect.
+    import ctypes
+
+    def starts(s_count, b):
+        st = torch.randint(0, s_count, (1, b), generator=gen, device=dev,
+                           dtype=torch.int32)
+        st[0, :4] = torch.tensor([s_count, s_count + 5, -1, -7])
+        return st
+
+    tb_cases = [(3, 6145, 64, 50), (7, 6145, 40, 40), (7, 6148, 70, 70),
+                (7, 512, 64, 0), (7, 512, 64, 1), (10, 333, 100, 97),
+                (9, 512, 300, 257)]
+    for k, b, t_pad, t in tb_cases:
+        s_count = 1 << (k - 1)
+        dec = torch.randint(0, 2, (t_pad, s_count, b), generator=gen,
+                            device=dev, dtype=torch.int8)
+        st = starts(s_count, b)
+        tb = dict(k=k, s_count=s_count, t_actual=t)
+        bits = vk.viterbi_traceback(dec, st, **tb)
+        bits_r = vk.viterbi_traceback_ref(dec, st, **tb)
+        torch.cuda.synchronize()
+        if not torch.equal(bits, bits_r):
+            raise AssertionError(f"B4 K{k} B={b} t={t}/{t_pad}: bits differ "
+                                 f"at {int((bits != bits_r).sum())}")
+        log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B4",
+                        "K": k, "rows": b, "steps": t, "t_pad": t_pad,
+                        "starts_outside": [s_count, s_count + 5, -1, -7],
+                        "plan": vk.traceback_plan(s_count, b, t)._asdict(),
+                        "bits_equal": True}))
+    llr_t, pm0, exp, kw, dec, start, tb = long_args
+    st = start.clone()
+    st[0, :4] = torch.tensor([64, 69, -1, -7])
+    bits = vk.viterbi_traceback(dec, st, **tb)
+    if not torch.equal(bits, vk.viterbi_traceback_ref(dec, st, **tb)):
+        raise AssertionError("B4 K7 512 x 4096, starts outside [0, S): "
+                             "bits differ")
+    lib = vk.load_library()[0]
+    plan = vk.traceback_plan(64, 512, tb["t_actual"])
+    for field, value in (("grid", plan.grid + 1), ("smem", plan.smem - 1),
+                         ("vec", 8), ("segments", plan.segments - 1)):
+        bad = plan._replace(**{field: value})
+        rc = lib.psk_viterbi_traceback(
+            *(ctypes.c_void_p(x.data_ptr()) for x in (dec, st, bits, bits,
+                                                      bits)),
+            64, 7, tb["t_actual"], 512, *bad,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc == 0:
+            raise AssertionError(f"B4 took a plan with {field} {value}")
+    log(json.dumps({"phase": "viterbi_vs_plain", "kernel": "B4",
+                    "K": 7, "rows": 512, "steps": tb["t_actual"],
+                    "starts_outside": [64, 69, -1, -7], "bits_equal": True,
+                    "unexpected_plans_refused": 4}))
+    del dec, bits, st
+
     # --- phase 8a: times (plain, kernel, kernel, plain within the call).
     def timed(kernel, plain, iters_plain):
         p1 = event_ms(plain, [()], iters=iters_plain)
@@ -929,10 +994,12 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
 
 def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
     """Phase 9: kernel B5 against its plain version at 1024 x 512 (sps 8,
-    num_avg 100): equal on planted symbols plus noise; on pure noise a
-    differing sample index is allowed only at a near tie of the plain
-    version's top two window sums.  Then its times on ``blocks``.
-    Returns the numbers of the kernels line."""
+    num_avg 100): equal on planted symbols plus noise; with a NaN and an
+    +inf planted (equal picks, non-finite values where the plain version
+    has them); at B1's edges (C = 1000; S in {1, 5, 37, 129}; sps 40); on
+    pure noise a differing sample index is allowed only at a near tie of
+    the plain version's top two window sums.  Then its times on
+    ``blocks``.  Returns the numbers of the kernels line."""
     from psk_soft_tpu_torch.ops import timing
     from psk_soft_tpu_torch.ops.cuda import frontend_kernel as fk
 
@@ -943,16 +1010,55 @@ def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
     def split(re, im):
         return re[:keep], im[:keep], re[keep:], im[keep:]
 
-    sig = torch.from_numpy(np.ascontiguousarray(
-        channels(S + NUM_AVG - 1).T)).to(dev)            # (rows, C)
-    args = split(sig.real.contiguous(), sig.imag.contiguous())
-    got = fk.timing_frontend_tm(*args, **kw)
-    ref = fk.timing_frontend_tm_ref(*args, **kw)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        raise AssertionError(f"B5 on planted symbols: sample index differs "
-                             f"at {int((got[2] != ref[2]).sum())}")
+    def held(label, re, im, sps=SPS, num_avg=NUM_AVG):
+        """B5 against its plain version: sample index equal, decision
+        samples equal, NaN and inf where the plain version's are."""
+        keep_ = (num_avg - 1) * sps
+        a = (re[:keep_], im[:keep_], re[keep_:], im[keep_:])
+        got = fk.timing_frontend_tm(*a, sps=sps, num_avg=num_avg)
+        ref = fk.timing_frontend_tm_ref(*a, sps=sps, num_avg=num_avg)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2], ref[2]) or not all(
+                nonfinite_match(x, y) and torch.equal(x[x.isfinite()],
+                                                      y[y.isfinite()])
+                for x, y in zip(got[:2], ref[:2])):
+            raise AssertionError(f"B5 {label}: sample index differs at "
+                                 f"{int((got[2] != ref[2]).sum())}")
+        return got, ref
+
+    def planted(n_sym, n_ch=C, sps=SPS):
+        sig = torch.from_numpy(np.ascontiguousarray(
+            channels(n_sym, n_ch=n_ch, sps=sps).T)).to(dev)    # (rows, C)
+        return sig.real.contiguous(), sig.imag.contiguous()
+
+    got, ref = held("planted", *planted(S + NUM_AVG - 1))
     err = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+
+    # Poison: NaN at channel 11's block symbol 300, +inf at 23's symbol 100
+    # (phase 3's case); from the first output whose window reaches it on,
+    # the poisoned bin is the pick, to the end of the block.
+    re, im = planted(S + NUM_AVG - 1)
+    re[keep + 300 * SPS + 5, 11] = float("nan")
+    im[keep + 100 * SPS + 3, 23] = float("inf")
+    got, ref = held("poison", re, im)
+    bad = torch.nonzero(~(got[0].isfinite() & got[1].isfinite()).all(dim=0)
+                        ).flatten().tolist()
+    if bad != [11, 23] or not (bool((got[2][300:, 11] == 5).all())
+                               and bool((got[2][100:, 23] == 3).all())):
+        raise AssertionError(f"B5 poison: non-finite channels {bad}, or "
+                             f"the poisoned bins not picked")
+    # B1's edges: C = 1000, S in {1, 5, 37, 129}, sps 40 (num_avg 20).
+    edges = [("C=1000", 1000, S, SPS, NUM_AVG)] + [
+        (f"S={n}", C, n, SPS, NUM_AVG) for n in (1, 5, 37, 129)] + [
+        ("sps=40", 256, S, 40, 20)]
+    for label, n_ch, n_sym, sps, num_avg in edges:
+        held(label, *planted(n_sym + num_avg - 1, n_ch, sps), sps, num_avg)
+    log(json.dumps({"phase": "frontend_vs_plain", "kernel": "B5",
+                    "cases": ["planted", "poison"] + [e[0] for e in edges],
+                    "sample_index_equal": True, "samples_equal": True,
+                    "nonfinite_where_plain": True,
+                    "poison_nonfinite_channels": bad}))
+    del re, im, got, ref
 
     gen = torch.Generator(device=dev).manual_seed(9)
     re = torch.randn((rows, C), generator=gen, device=dev)
@@ -981,7 +1087,7 @@ def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
                     "noise_outputs": S * C,
                     "noise_widest_relative_gap": widest,
                     "near_tie_bound": NEAR_TIE_REL}))
-    del sig, re, im, e, top2, gap
+    del re, im, e, top2, gap
 
     targs = [(p[0][-keep:], p[1][-keep:], c[0], c[1])
              for p, c in zip(blocks[-1:] + blocks[:-1], blocks)]
@@ -994,7 +1100,8 @@ def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
     log(json.dumps({"phase": "timing", "what": "timing_frontend_tm (B5) "
                     "block", "channels": C, "symbols": S,
                     "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                    "tile": fk.pick_tile(C, S, SPS), "card": card}))
+                    "plan": fk.timing_plan(C, SPS)._asdict(),
+                    "card": card}))
     # Per input sample its energy (3 operations); per (symbol, bin) the
     # window slide (2) and the first-max compare (1).
     return dict(ms=min(k1, k2), plain_ms=min(p1, p2), max_abs_err=err,

@@ -17,18 +17,17 @@
 //   rows misc+0 .. misc+3   ang_prev, unwrap_acc, last decision re, im
 //   rows misc+4 .. and pad  passed through unchanged
 //
-// Design: two kernels on the caller's stream, both parallel over symbols.
+// Design: two kernels on the caller's stream.
 //
-// Stage A (demod_timing_*_kernel), parallel over (channel, symbol tile):
-// kernel B5's tile loops (timing.cuh: 32 channels by sps warps, sums slid
-// within a tile, the first-max argmax and the gather by one warp per
-// symbol after a shared-memory exchange; one thread per (channel, tile)
-// for sps > 32), then per (symbol, channel) the M-th power and raw =
-// atan2f.  It writes sel_re, sel_im, raw to (S, C) scratch and the sample
-// index to its output plane.  Every sample it adds to a window sum is
-// checked: the first NaN and the first +inf energy symbol of each
-// (bin, channel) go to `first_bad` with atomicMin (a branch never taken on
-// finite input).
+// Stage A (demod_timing_kernel), one block per group of channels over the
+// whole block of symbols: kernel B5's block loop (timing.cuh: the stream
+// staged by cp.async, window sums carried through the block as two running
+// sums, the first-max bin and its sample), then per (symbol, channel) the
+// M-th power and raw = atan2f.  It writes sel_re, sel_im, raw to (S, C)
+// scratch and the sample index to its output plane.  Every sample that
+// enters a window sum is checked: the first NaN and the first +inf energy
+// symbol of each (bin, channel) go to `first_bad` with atomicMin (a branch
+// never taken on finite input).
 //
 // Stage B (demod_track_kernel), one block per group of kGroup channels
 // walking the block in chunks of `chunk` symbols, one thread per (symbol,
@@ -50,19 +49,20 @@
 // differences from the start of [window | block], so a NaN energy at
 // symbol t in bin j makes that bin's sum NaN for every output symbol o
 // with o + num_avg - 1 >= t, and a +inf makes it inf while the window
-// holds it and NaN once it has left (inf - inf).  A tile that starts its
-// sums fresh would forget such a sample.  Stage B keeps the plain rule:
-// on a channel whose first non-finite symbol the window has reached, it
-// derives each bin's state from `first_bad` (NaN, inf or finite), takes
-// the first NaN bin, else the first inf bin, else keeps stage A's pick,
-// and re-gathers the sample and its raw phase.  Finite channels skip it.
+// holds it and NaN once it has left (inf - inf).  Stage A's carried sums
+// give that rule themselves; stage B also derives it from `first_bad` on a
+// channel whose first non-finite symbol the window has reached (each bin
+// NaN, inf or finite; the first NaN bin, else the first inf bin, else
+// stage A's pick) and re-gathers the sample and its raw phase.  Finite
+// channels skip it.
 //
 // What bounds it on an H100: the function must move about 45 MB per
 // 1024 x 512-symbol block at sps 8 (33.5 MB of block planes, the 6.5 MB
-// window, soft and bits out), about 14 us of HBM time.  Stage A re-reads
-// each tile's first window from L2 (as B5 does) and stage B walks S /
-// chunk chunks with four barriers each, so the pair is bound by L2 traffic
-// and by the latency of those chunk steps, not by HBM bytes.  The earlier
+// window, soft and bits out), about 14 us of HBM time.  Stage A reads each
+// row a second time as it leaves the window sums (timing.cuh) and
+// stage B walks S / chunk chunks with four barriers each, so the pair is
+// bound by L2 traffic and by the latency of those chunk steps, not by HBM
+// bytes.  The earlier
 // design (one thread walking all S symbols of a channel, 1024 threads in
 // all) was bound by the latency of each symbol's dependent chain.
 //
@@ -84,7 +84,6 @@ constexpr float kTwoPi = 6.2831853071795865f;
 constexpr float kQuarterPi = 0.7853981633974483f;
 constexpr int kGroup = 8;               // channels per stage-B block
 constexpr int kSymsPerWarp = 32 / kGroup;
-constexpr int kWideThreads = 32;        // stage A threads a block, sps > 32
 constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float mth_phase(float re, float im, int m) {
@@ -121,7 +120,8 @@ struct Params {
   void* bits;             // (S, C) int8 when pack_out, else int32
   void* idx;              // (S, C) like bits, or null (debug ports off)
   int C, S, sps, num_avg, n1, m, diff, pack_out, soft_i8, state_rows;
-  int tile, chunk;
+  int group, tchunk, vec;  // stage A's plan (timing.cuh)
+  int chunk;               // stage B: symbols a chunk
   float soft_scale;
   float m_scale;          // m / (2 pi), rounded once to float
 };
@@ -130,9 +130,8 @@ struct Params {
 
 struct TimingEmit {
   const Params& p;
-  __device__ __forceinline__ void operator()(int o, int c, int b) const {
-    float re, im;
-    p.in.sample((int64_t)o * p.sps + b, c, re, im);
+  __device__ __forceinline__ void operator()(int o, int c, int b, float re,
+                                             float im) const {
     const int64_t i = (int64_t)o * p.C + c;
     p.sel_re[i] = re;
     p.sel_im[i] = im;
@@ -152,18 +151,11 @@ struct NoteNonFinite {
   }
 };
 
-__global__ void __launch_bounds__(psk::kTimingLanes * psk::kTimingMaxBinsSps)
-demod_timing_bins_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float wbuf[];
-  psk::timing_tile_bins(p.in, p.S, p.sps, p.num_avg, p.tile, wbuf,
-                        TimingEmit{p}, NoteNonFinite{p});
-}
-
-__global__ void __launch_bounds__(kWideThreads)
-demod_timing_wide_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  psk::timing_tile_wide(p.in, p.S, p.sps, p.num_avg, p.tile, smem,
-                        TimingEmit{p}, NoteNonFinite{p});
+__global__ void __launch_bounds__(psk::kTimingThreads)
+demod_timing_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float smem[];
+  psk::timing_block(p.in, p.S, p.sps, p.num_avg, p.group, p.tchunk, p.vec,
+                    smem, TimingEmit{p}, NoteNonFinite{p});
 }
 
 // ---- stage B ----
@@ -431,13 +423,6 @@ demod_track_kernel(const __grid_constant__ Params p) {
   }
 }
 
-int64_t timing_smem_bytes(int sps) {
-  return (int64_t)sizeof(float) * sps
-         * (sps <= psk::kTimingMaxBinsSps
-                ? psk::kTimingChunk * psk::kTimingLanes
-                : kWideThreads);
-}
-
 cudaError_t allow_smem(const void* kernel, int64_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -447,11 +432,12 @@ cudaError_t allow_smem(const void* kernel, int64_t bytes) {
 
 }  // namespace
 
-// Dynamic shared memory per block of stage A (stage 0) or stage B
-// (stage 1), so the wrapper's launch plan can be checked against it.
+// Dynamic shared memory per block of stage A (stage 0: sps, its group and
+// chunk) or stage B (stage 1: phase_avg and its chunk), so the wrapper's
+// launch plan can be checked against it.
 extern "C" int64_t psk_demod_full_smem(int stage, int sps, int phase_avg,
-                                       int chunk) {
-  return stage == 0 ? timing_smem_bytes(sps)
+                                       int chunk, int group) {
+  return stage == 0 ? psk::timing_smem_bytes(sps, group, chunk)
                     : track_smem_bytes(phase_avg - 1, chunk);
 }
 
@@ -467,15 +453,16 @@ extern "C" int psk_demod_full_tm(
     float* phase, void* bits, void* idx, float* sel_re, float* sel_im,
     float* raw, int* first_bad, int C, int S, int sps, int num_avg,
     int phase_avg, int m, int diff, int pack_out, int soft_i8,
-    float soft_scale, int state_rows, int tile, int chunk, void* stream) {
-  const int tiles = tile > 0 ? (S + tile - 1) / tile : 0;
-  if (C < 1 || S < 1 || sps < 2 || num_avg < 2 || phase_avg < kTrend + 1
-      || tile < 1 || tiles > 65535 || chunk < kSymsPerWarp
-      || chunk % kSymsPerWarp || chunk * kGroup > kMaxThreads
-      || win_rows != (int64_t)(num_avg - 1) * sps)
-    return (int)cudaErrorInvalidValue;
+    float soft_scale, int state_rows, int group, int tchunk, int vec,
+    int chunk, void* stream) {
   Params p;
   p.in = psk::TwoPlanes{win_re, win_im, x_re, x_im, win_rows, C};
+  if (C < 1 || S < 1 || sps < 2 || num_avg < 2 || phase_avg < kTrend + 1
+      || psk::timing_plan_error(p.in, sps, group, tchunk, vec)
+      || chunk < kSymsPerWarp || chunk % kSymsPerWarp
+      || chunk * kGroup > kMaxThreads
+      || win_rows != (int64_t)(num_avg - 1) * sps)
+    return (int)cudaErrorInvalidValue;
   p.sel_re = sel_re;
   p.sel_im = sel_im;
   p.raw = raw;
@@ -498,7 +485,9 @@ extern "C" int psk_demod_full_tm(
   p.pack_out = pack_out;
   p.soft_i8 = soft_i8;
   p.state_rows = state_rows;
-  p.tile = tile;
+  p.group = group;
+  p.tchunk = tchunk;
+  p.vec = vec;
   p.chunk = chunk;
   p.soft_scale = soft_scale;
   p.m_scale = (float)((double)m / 6.283185307179586);
@@ -509,17 +498,11 @@ extern "C" int psk_demod_full_tm(
                                   sizeof(int) * 2 * (size_t)sps * C, s);
   if (e != cudaSuccess) return (int)e;
 
-  const int64_t smem_a = timing_smem_bytes(sps);
-  if (sps <= psk::kTimingMaxBinsSps) {
-    const dim3 grid((C + psk::kTimingLanes - 1) / psk::kTimingLanes, tiles);
-    demod_timing_bins_kernel<<<grid, dim3(psk::kTimingLanes, sps), smem_a,
-                               s>>>(p);
-  } else {
-    e = allow_smem((const void*)demod_timing_wide_kernel, smem_a);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((C + kWideThreads - 1) / kWideThreads, tiles);
-    demod_timing_wide_kernel<<<grid, kWideThreads, smem_a, s>>>(p);
-  }
+  const int64_t smem_a = psk::timing_smem_bytes(sps, group, tchunk);
+  e = allow_smem((const void*)demod_timing_kernel, smem_a);
+  if (e != cudaSuccess) return (int)e;
+  demod_timing_kernel<<<(C + group - 1) / group, psk::kTimingThreads, smem_a,
+                        s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 

@@ -1,8 +1,34 @@
 // The C2 timing stage shared by kernels B1 (demod_full.cu, its stage A) and
 // B5 (frontend.cu): reading row r of the [window | block] planes through
 // two pointers, per-sample energy, the first-max rule of the argmax, and
-// the tile loops that turn a tile of output symbols into per-symbol
-// decisions (window sums over num_avg symbols, first-max bin, emit).
+// the block loop that turns a group of channels into per-symbol decisions
+// (window sums over num_avg symbols, first-max bin, the decision sample).
+//
+// The block loop (timing_block).  One block owns `group` consecutive
+// channels for the whole block of S output symbols, so window sums carry
+// through the block and no rows are re-read as a tile's halo.  For bin j
+// of channel c the sum of output symbol o is P_in - P_out, two running
+// sums: P_in of the energies of symbols [0, o + num_avg - 1] (entering)
+// and P_out of symbols [0, o - 1] (left) -- the plain version's cumsum
+// difference cs[o + num_avg - 1] - cs[o - 1], taken as two sums of the
+// same stream.  A NaN or inf sample therefore has the plain version's
+// effect wherever it lies: NaN from the first symbol whose window reaches
+// a NaN, inf while the window holds an inf and NaN once it has left (inf
+// - inf), on to the end of the block.  (num_avg 1 takes the energy itself,
+// as the plain version does.)  The block walks virtual outputs v from
+// -(num_avg - 1) to S - 1 in chunks of `chunk`; each chunk stages two
+// pieces of the stream in shared memory by cp.async, double-buffered (the
+// copy of chunk i+1 runs under the work on chunk i): the entering symbols
+// [v0 + num_avg - 1, + chunk) and the symbols [v0 - 1, v0 + chunk), whose
+// energies leave the sums and whose samples are the decision samples.
+// Threads then add a chunk's energies per (bin, channel), the chunk split
+// into parts so that every thread adds (each part's own sums, then, after
+// a barrier, those plus the parts before it and the carry), and after a
+// barrier take per (symbol, channel) the first-max bin and its sample.
+// Rows that leave are read a second time num_avg symbols later (the 40 MB
+// of a 1024 x 512 block at sps 8 fit the 50 MB L2, so that read need not
+// reach HBM); shared memory grows with sps and the group, never with
+// num_avg.
 #pragma once
 
 #include <stdint.h>
@@ -32,10 +58,9 @@ struct TwoPlanes {
     }
   }
 
-  __device__ __forceinline__ float energy(int64_t r, int c) const {
-    float re, im;
-    sample(r, c, re, im);
-    return re * re + im * im;
+  __device__ __forceinline__ const float* row(int64_t r, bool im) const {
+    return r < win_rows ? (im ? win_im : win_re) + r * C
+                        : (im ? x_im : x_re) + (r - win_rows) * C;
   }
 };
 
@@ -47,119 +72,211 @@ __device__ __forceinline__ bool takes_max(float v, float best) {
   return v > best || (v != v && best == best);
 }
 
-constexpr int kTimingLanes = 32;      // channels per block, bins layout
-constexpr int kTimingChunk = 8;       // symbols per shared-memory exchange
-constexpr int kTimingMaxBinsSps = 32; // bins layout: one warp per bin
+constexpr int kTimingThreads = 512;   // threads a block
+constexpr int kTimingMaxGroup = 8;    // channels a block
+
+// Pieces of a chunk the window sums are split into, so that every thread
+// adds: kTimingThreads / (sps * group) of them, at most one a symbol.
+__host__ __device__ __forceinline__ int timing_parts(int sps, int group,
+                                                     int chunk) {
+  const int p = kTimingThreads / (sps * group);
+  return p < 1 ? 1 : (p > chunk ? chunk : p);
+}
+
+// Dynamic shared memory of timing_block: two staged chunks (each re and im
+// of `chunk` entering and `chunk` + 1 leaving symbols); the
+// window sums of a chunk (symbol stride (sps + 1) * group, so the argmax's
+// reads of four symbols fall in four banks) and the leaving sums' partials
+// (stride sps * group); per part of a chunk its two totals; the two
+// running sums, in two copies used in turn.
+__host__ __device__ __forceinline__ int64_t timing_smem_bytes(int sps,
+                                                              int group,
+                                                              int chunk) {
+  const int64_t pairs = (int64_t)sps * group;
+  return 4 * (2 * 2 * (2 * chunk + 1) * pairs
+              + (int64_t)chunk * (pairs + group) + chunk * pairs
+              + 2 * timing_parts(sps, group, chunk) * pairs + 4 * pairs);
+}
+
+// 0 when (group, chunk, vec) is a plan timing_block takes for these planes
+// (ops/cuda/demod_kernel.timing_plan makes it): a group of 1-8 channels
+// that is a whole number of copies, copies of 4, 8 or 16 bytes that fit
+// the planes' row stride and addresses.
+inline int timing_plan_error(const TwoPlanes& in, int sps, int group,
+                             int chunk, int vec) {
+  if (group < 1 || group > kTimingMaxGroup || (group & (group - 1))
+      || chunk < 1 || (vec != 4 && vec != 8 && vec != 16)
+      || (4 * group) % vec || (4 * (int64_t)in.C) % vec || sps < 1)
+    return 1;
+  const float* ptrs[4] = {in.win_re, in.win_im, in.x_re, in.x_im};
+  for (int i = in.win_rows ? 0 : 2; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % vec) return 1;
+  return 0;
+}
 
 // A per-sample hook that does nothing (kernel B5).  A hook is called as
-// note(energy, symbol, bin, channel) once for every sample a tile adds to
-// its window sums; symbol counts rows of [window | block] in symbols.
+// note(energy, symbol, bin, channel) once for every sample of the stream
+// (symbol counts rows of [window | block] in symbols), as it enters the
+// window sums.
 struct NoNote {
   __device__ __forceinline__ void operator()(float, int, int, int) const {}
 };
 
-// Bins layout (sps <= 32): block (32 channels, sps bins), thread (lane, j)
-// owns channel blockIdx.x * 32 + lane and bin j over the output symbols
-// [o0, o1) of tile blockIdx.y.  It sums its bin's first window directly
-// (symbols [o0, o0 + num_avg)), then slides it one symbol at a time (add
-// the entering symbol's energy, subtract the leaving one's).  Every
-// kTimingChunk symbols the warps exchange their sums through `wbuf`
-// (kTimingChunk * sps * 32 floats of shared memory) and each warp takes
-// the first-max argmax of its own symbols of the chunk and calls
-// emit(o, c, bin) once for each (symbol, channel).
-template <class Emit, class Note>
-__device__ __forceinline__ void timing_tile_bins(const TwoPlanes& in, int S,
-                                                 int sps, int num_avg,
-                                                 int tile, float* wbuf,
-                                                 Emit emit, Note note) {
-  const int lane = threadIdx.x;
-  const int j = threadIdx.y;
-  const int c = blockIdx.x * kTimingLanes + lane;
-  const bool live = c < in.C;         // idle lanes still meet the barriers
-  const int o0 = blockIdx.y * tile;
-  const int o1 = min(o0 + tile, S);
+__device__ __forceinline__ void timing_cp_async(float* dst, const float* src,
+                                                int vec, int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else if (vec == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+}
 
-  // Window sum of output symbol o0: symbols [o0, o0 + num_avg).
-  float w = 0.f;
-  if (live) {
-#pragma unroll 4
-    for (int t = o0; t < o0 + num_avg; ++t) {
-      const float e = in.energy((int64_t)t * sps + j, c);
-      note(e, t, j, c);
-      w += e;
-    }
-  }
-  for (int base = o0; base < o1; base += kTimingChunk) {
-#pragma unroll
-    for (int s = 0; s < kTimingChunk; ++s) {
-      const int o = base + s;
-      if (live && o > o0 && o < o1) { // slide to symbols [o, o + num_avg)
-        const int t_in = o + num_avg - 1;
-        const float e_in = in.energy((int64_t)t_in * sps + j, c);
-        note(e_in, t_in, j, c);
-        w = w + e_in - in.energy((int64_t)(o - 1) * sps + j, c);
-      }
-      wbuf[(s * sps + j) * kTimingLanes + lane] = w;
-    }
-    __syncthreads();
-    for (int s = j; s < kTimingChunk; s += sps) {
-      const int o = base + s;
-      if (!live || o >= o1) continue;
-      const float* col = wbuf + s * sps * kTimingLanes + lane;
-      int b = 0;
-      float best = col[0];
-      for (int q = 1; q < sps; ++q) {
-        const float v = col[q * kTimingLanes];
-        if (takes_max(v, best)) { best = v; b = q; }
-      }
-      emit(o, c, b);
-    }
-    __syncthreads();
+// Start the copies of symbols [s0, s0 + n) of channels [c0, c0 + group)
+// of one plane (`im`) into a buffer laid out [symbol][bin][channel]; rows
+// outside the stream and channels past C read as 0.  `lg` is log2 of the
+// copies a row (group and vec are powers of two).
+__device__ __forceinline__ void timing_stage(const TwoPlanes& in, int sps,
+                                             int group, int vec, int lg,
+                                             int64_t rows, int s0, int n,
+                                             int c0, bool im, float* buf) {
+  const int total = (n * sps) << lg;
+  const int64_t r0 = (int64_t)s0 * sps;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int ri = e >> lg;                 // row within the piece
+    const int c = c0 + (e - (ri << lg)) * (vec >> 2);
+    const int64_t r = r0 + ri;
+    const bool ok = r >= 0 && r < rows && c < in.C;
+    timing_cp_async(buf + ri * group + (c - c0),
+                    ok ? in.row(r, im) + c : in.x_re, vec, ok ? vec : 0);
   }
 }
 
-// Wide layout (any sps; used for sps > 32, where the bins layout would
-// exceed 1024 threads a block): one thread per (channel, tile), channel
-// blockIdx.x * blockDim.x + threadIdx.x, its bins in its column of `smem`
-// (sps * blockDim.x floats).  Same sums, slides, first-max and emit.
+// The block loop over channels [blockIdx.x * group, + group) and all S
+// output symbols; `smem` holds timing_smem_bytes(sps, group, chunk).
+// emit(o, c, bin, re, im) is called once for each (symbol, channel) with
+// the first-max bin and its sample; note as above.
 template <class Emit, class Note>
-__device__ __forceinline__ void timing_tile_wide(const TwoPlanes& in, int S,
-                                                 int sps, int num_avg,
-                                                 int tile, float* smem,
-                                                 Emit emit, Note note) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= in.C) return;
-  const int stride = blockDim.x;
-  const int o0 = blockIdx.y * tile;
-  const int o1 = min(o0 + tile, S);
-  float* w = smem + threadIdx.x;      // bin j at w[j * stride]
+__device__ __forceinline__ void timing_block(const TwoPlanes& in, int S,
+                                             int sps, int num_avg, int group,
+                                             int chunk, int vec, float* smem,
+                                             Emit emit, Note note) {
+  const int c0 = blockIdx.x * group;
+  const int lead = num_avg - 1;             // warm-up outputs
+  const int64_t rows = (int64_t)(S + lead) * sps;
+  const int nchunks = (S + lead + chunk - 1) / chunk;
+  const int lg = __ffs(4 * group / vec) - 1;
+  const int pairs = sps * group;            // (bin, channel) pairs
+  const int in_f = chunk * pairs;           // floats of one entering plane
+  const int lv_f = (chunk + 1) * pairs;
+  const int stage_f = 2 * (in_f + lv_f);
+  const int sstride = pairs + group;        // window sums: floats a symbol
+  const int parts = timing_parts(sps, group, chunk);
+  const int part_len = (chunk + parts - 1) / parts;
+  float* const sums = smem + 2 * stage_f;   // P_in partials too
+  float* const outs = sums + chunk * sstride;           // P_out partials
+  float* const tot = outs + chunk * pairs;   // [2][parts][pairs]
+  float* const carry = tot + 2 * parts * pairs;          // [2][2][pairs]
 
-  for (int j = 0; j < sps; ++j) w[j * stride] = 0.f;
-  for (int t = o0; t < o0 + num_avg; ++t)
-    for (int j = 0; j < sps; ++j) {
-      const float e = in.energy((int64_t)t * sps + j, c);
-      note(e, t, j, c);
-      w[j * stride] += e;
+  auto issue = [&](int i) {
+    if (i < nchunks) {
+      float* st = smem + (i & 1) * stage_f;
+      const int v0 = i * chunk - lead;
+      timing_stage(in, sps, group, vec, lg, rows, v0 + lead, chunk, c0,
+                   false, st);
+      timing_stage(in, sps, group, vec, lg, rows, v0 + lead, chunk, c0,
+                   true, st + in_f);
+      timing_stage(in, sps, group, vec, lg, rows, v0 - 1, chunk + 1, c0,
+                   false, st + 2 * in_f);
+      timing_stage(in, sps, group, vec, lg, rows, v0 - 1, chunk + 1, c0,
+                   true, st + 2 * in_f + lv_f);
     }
-  for (int o = o0; o < o1; ++o) {
-    if (o > o0) {
-      const int t_in = o + num_avg - 1;
-      const int64_t r_in = (int64_t)t_in * sps;
-      const int64_t r_out = (int64_t)(o - 1) * sps;
-      for (int j = 0; j < sps; ++j) {
-        const float e_in = in.energy(r_in + j, c);
-        note(e_in, t_in, j, c);
-        w[j * stride] = w[j * stride] + e_in - in.energy(r_out + j, c);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  for (int p = threadIdx.x; p < 2 * pairs; p += blockDim.x) carry[p] = 0.f;
+  issue(0);
+
+  for (int i = 0; i < nchunks; ++i) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // chunk i staged; chunk i-1's buffers and sums free
+    issue(i + 1);
+    const float* st = smem + (i & 1) * stage_f;
+    const float* in_re = st;
+    const float* in_im = st + in_f;
+    const float* lv_re = st + 2 * in_f;
+    const float* lv_im = lv_re + lv_f;
+    const int v0 = i * chunk - lead;
+    const int len = min(chunk, S - v0);     // outputs (real or warm-up)
+    const float* cin = carry + (i & 1) * 2 * pairs;      // sums so far
+    float* const cnext = carry + ((i & 1) ^ 1) * 2 * pairs;
+
+    // The window sums, in two passes over (part, pair): each part's own
+    // running sums of its symbols, then those plus the parts before it and
+    // the carry.
+    for (int w = threadIdx.x; w < parts * pairs; w += blockDim.x) {
+      const int q = w / pairs, pr = w - q * pairs;
+      const int j = pr / group, c = c0 + pr - j * group;
+      const int k1 = min(len, (q + 1) * part_len);
+      float lin = 0.f, lout = 0.f;
+#pragma unroll 4
+      for (int k = q * part_len; k < k1; ++k) {
+        const int x = k * pairs + pr;
+        const float ein = in_re[x] * in_re[x] + in_im[x] * in_im[x];
+        const float eout = lv_re[x] * lv_re[x] + lv_im[x] * lv_im[x];
+        if (c < in.C) note(ein, v0 + lead + k, j, c);
+        lin += ein;
+        lout += eout;
+        sums[k * sstride + pr] = num_avg == 1 ? ein : lin;
+        outs[x] = lout;
+      }
+      tot[w] = lin;
+      tot[parts * pairs + w] = lout;
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < parts * pairs; w += blockDim.x) {
+      const int q = w / pairs, pr = w - q * pairs;
+      float oin = cin[pr], oout = cin[pairs + pr];
+      for (int u = 0; u < q; ++u) {
+        oin += tot[u * pairs + pr];
+        oout += tot[(parts + u) * pairs + pr];
+      }
+      const int k1 = min(len, (q + 1) * part_len);
+      if (num_avg > 1)
+#pragma unroll 4
+        for (int k = q * part_len; k < k1; ++k)
+          sums[k * sstride + pr] =
+              (oin + sums[k * sstride + pr]) - (oout + outs[k * pairs + pr]);
+      if (q == parts - 1) {
+        cnext[pr] = oin + tot[w];
+        cnext[pairs + pr] = oout + tot[parts * pairs + w];
       }
     }
-    int b = 0;
-    float best = w[0];
-    for (int j = 1; j < sps; ++j) {
-      const float v = w[j * stride];
-      if (takes_max(v, best)) { best = v; b = j; }
+    __syncthreads();
+
+    // First-max bin and its sample, per (symbol, channel).
+    for (int q = threadIdx.x; q < len * group; q += blockDim.x) {
+      const int k = q / group, g = q - k * group;
+      const int o = v0 + k;
+      if (o < 0 || c0 + g >= in.C) continue;
+      const float* col = sums + k * sstride + g;
+      int b = 0;
+      float best = col[0];
+      for (int j = 1; j < sps; ++j) {
+        const float v = col[j * group];
+        if (takes_max(v, best)) {
+          best = v;
+          b = j;
+        }
+      }
+      const int at = ((k + 1) * sps + b) * group + g;   // symbol o
+      emit(o, c0 + g, b, lv_re[at], lv_im[at]);
     }
-    emit(o, c, b);
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace psk

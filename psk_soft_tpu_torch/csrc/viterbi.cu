@@ -29,7 +29,9 @@
 // (ops/fec._make_back): the bit of step t is (s >> (K-2)) & 1, then s =
 // ((s << 1) & (S-1)) | dec[t][s]; the start is state 0 (terminate) or the
 // first maximum of the final metrics, a NaN counting as the maximum as in
-// torch.argmax (psk::takes_max).
+// torch.argmax (psk::takes_max).  B4 takes any int32 start: outside [0,
+// S) its first bit comes from the raw value and its first decision reads
+// 0, as the Pallas _back_kernel's one-hot lookup does.
 //
 // Design (B2 and B3 share one ACS core, acs_steps).  A decode row's states
 // live in the registers of one warp: the row takes L = min(32, S/2) lanes
@@ -57,8 +59,31 @@
 //   next chunk's LLRs and write the previous chunk's words to (T_pad, S,
 //   B) as bytes, rows fastest, in contiguous pieces of W bytes (4-byte
 //   stores where B % 4 == 0), while the ACS warps run the current chunk.
-// B4 runs one thread per row, a chain of dependent loads through the
-// decision plane (unchanged from its first version).
+// B4 (viterbi_segments_kernel, then viterbi_resolve_kernel).  A step's S
+// decisions can be loaded before its state is known, and a walk can be
+// cut into segments: a segment walked back from every one of the S states
+// gives a map from the state entering it (from later steps) to the state
+// leaving it, and the bits of each of those S walks.  Pass 1: a block of
+// kTbRows = 32 consecutive rows by one segment of the t_actual - 1 steps
+// before the last; three copy warps stage (Tc, S, 32) tiles of the plane
+// into shared memory by cp.async (16 or 4 bytes a copy where B allows it,
+// else a byte load and store), latest steps first, three tiles ahead, one
+// barrier a tile; up to 16 walker warps, lane = row, walk the S end states
+// (S / 16 walks a thread at K >= 5) in shared memory only, storing each
+// walk's bits once per 32 steps and its final state.  Pass 2: one thread
+// a row takes the last step from the start state, chains the segments'
+// maps down to the state entering each segment and expands the 32-step
+// words of those walks into bit rows.  The plan (bytes a copy, Tc,
+// segment length, segments, shared memory, grid) comes from Python
+// (viterbi_kernel.traceback_plan) and is only checked here
+// (traceback_plan.h).  What bounds it: reading the plane once is 134 MB
+// at K7 512 x 4096, 0.04 ms at 3.35 TB/s; a single walk is a chain of
+// 4096 dependent shared-memory loads (some 35-45 cycles each, 0.07-0.09
+// ms at 1.98 GHz), which the segments cut 16-fold for S times the loads.
+// The earlier designs: one thread per row reading the plane in device
+// memory at each dependent step (2.04 ms there); one walker warp per 32
+// rows reading staged tiles (0.80 ms: 16 blocks took the plane in at
+// about 10 GB/s an SM).
 //
 // What bounds them on an H100.  By the roofline, B2 at the chain shape
 // (K7, n 2, 64 steps, 6144 rows) is bound by operations (about 11 per
@@ -71,7 +96,7 @@
 // clock) = 0.11-0.14 ms whatever the row count.  In the kernel a step
 // takes about 200 cycles: B3's 512 rows are 64 blocks, one an SM, and one
 // block of 8 rows alone takes nearly as long (0.40 against 0.43 ms,
-// tools/viterbi_times.py), so the step's latency inside a block bounds it:
+// tools/kernel_times.py), so the step's latency inside a block bounds it:
 // two ACS warps and a writer warp share each scheduler, and writing the
 // decision plane keeps the writer warps about as busy as the ACS.  B2's
 // 6144 warps are bound by the issue rate, about 45 instructions a warp
@@ -95,6 +120,7 @@
 #include <stdint.h>
 
 #include "timing.cuh"
+#include "traceback_plan.h"
 
 namespace {
 
@@ -602,17 +628,177 @@ __global__ void __launch_bounds__(
   }
 }
 
-__global__ void viterbi_traceback_kernel(const int8_t* __restrict__ dec,
-                                         const int32_t* __restrict__ start,
-                                         int8_t* __restrict__ bits, int S,
-                                         int k, int t_actual, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int st = start[b] & (S - 1);
-  for (int t = t_actual - 1; t >= 0; --t) {
-    bits[(size_t)t * B + b] = (int8_t)((st >> (k - 2)) & 1);
-    const int d = dec[((size_t)t * S + st) * B + b] != 0;
-    st = ((st << 1) & (S - 1)) | d;
+struct TbParams {
+  const int8_t* dec;        // (T_pad, S, B)
+  const int32_t* start;     // (B,)
+  int8_t* bits;             // (T_pad, B)
+  uint32_t* words;          // (ceil(steps / 32), S, B) scratch: walk bits
+  int32_t* fmap;            // (segments, S, B) scratch: segment maps
+  int S, k, t_actual, B;
+  int vec, chunk, seg_len, segments;  // the plan (traceback_plan.h)
+  int steps;                // t_actual - 1: the steps the segments walk
+};
+
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src,
+                                               int size, int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (size == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage steps [t0, t0 + len) of the block's rows [b0, b0 + kTbRows) into
+// `buf`, laid out [step][state][row], by copy thread ct of nct: pieces of
+// `vec` bytes, rows past B read as 0.
+__device__ void stage_decisions(const TbParams& p, unsigned char* buf,
+                                int t0, int len, int b0, int ct, int nct) {
+  const int lg = __ffs(psk::kTbRows / p.vec) - 1;   // copies a row: 2^lg
+  const int total = (len * p.S) << lg;
+  for (int e = ct; e < total; e += nct) {
+    const int ts = e >> lg;                 // (step - t0) * S + state
+    const int row = b0 + (e - (ts << lg)) * p.vec;
+    const int n = min(max(p.B - row, 0), p.vec);
+    const int8_t* src =
+        n ? p.dec + ((size_t)t0 * p.S + ts) * p.B + row : p.dec;
+    unsigned char* dst = buf + (size_t)ts * psk::kTbRows + (row - b0);
+    if (p.vec == 1)
+      *dst = n ? (unsigned char)*src : 0;
+    else
+      cp_async_bytes(dst, src, p.vec, n);
+  }
+}
+
+// B4, pass 1: block (row group, segment) walks its segment of steps
+// [s_lo, s_hi) back from every one of the S states, for each of its
+// kTbRows rows: walker warp w, lane = row, takes the Q end states e = w +
+// walk_warps * m.
+// Each walk keeps its bits in a register word, stored once per 32 steps to
+// `words` at (step / 32, e, row), and its state at s_lo to `fmap` at
+// (segment, e, row).  The copy warps stage the segment's decisions in
+// tiles of `chunk` steps, latest first, kTbBuffers tiles in a ring and
+// three ahead of the walk, one barrier a tile; the walkers read only
+// shared memory.
+template <int Q>
+__global__ void __launch_bounds__(32 * (psk::kTbWalkWarps +
+                                        psk::kTbCopyWarps))
+    viterbi_segments_kernel(const TbParams p) {
+  extern __shared__ __align__(16) unsigned char tiles[];
+  constexpr int rows = psk::kTbRows;
+  const int S = p.S, chunk = p.chunk;
+  const int groups = (p.B + rows - 1) / rows;
+  const int b0 = (blockIdx.x % groups) * rows;
+  const int seg = blockIdx.x / groups;
+  const int s_lo = seg * p.seg_len;
+  const int s_hi = min(s_lo + p.seg_len, p.steps);
+  const int ntiles = (s_hi - s_lo + chunk - 1) / chunk;
+  const size_t tile_bytes = (size_t)chunk * S * rows;
+  const int walk_warps = psk::traceback_walk_warps(S);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool walker = warp < walk_warps;
+  const int ct = threadIdx.x - 32 * walk_warps;
+  const int nct = 32 * psk::kTbCopyWarps;
+  // Order i is the segment's tile ntiles - 1 - i.
+  auto issue = [&](int i) {
+    if (i < ntiles) {
+      const int t0 = s_lo + (ntiles - 1 - i) * chunk;
+      stage_decisions(p, tiles + (i % psk::kTbBuffers) * tile_bytes, t0,
+                      min(chunk, s_hi - t0), b0, ct, nct);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (!walker)
+    for (int i = 0; i < psk::kTbBuffers - 1; ++i) issue(i);
+
+  const int b = b0 + lane;
+  const bool live = walker && b < p.B;
+  int st[Q];
+  uint32_t acc[Q];
+#pragma unroll
+  for (int m = 0; m < Q; ++m) {
+    st[m] = warp + walk_warps * m;
+    acc[m] = 0;
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    if (!walker) cp_async_wait<psk::kTbBuffers - 2>();
+    __syncthreads();  // order i staged; order i-1's buffer free
+    if (!walker) {
+      issue(i + psk::kTbBuffers - 1);
+      continue;
+    }
+    const int t0 = s_lo + (ntiles - 1 - i) * chunk;
+    const unsigned char* tb =
+        tiles + (i % psk::kTbBuffers) * tile_bytes + lane;
+    for (int tt = min(chunk, s_hi - t0) - 1; tt >= 0; --tt) {
+      const int t = t0 + tt;
+      const unsigned char* step = tb + (size_t)tt * S * rows;
+#pragma unroll
+      for (int m = 0; m < Q; ++m) {
+        const int d = step[st[m] * rows] != 0;
+        acc[m] |= (uint32_t)((st[m] >> (p.k - 2)) & 1) << (t & 31);
+        st[m] = ((st[m] << 1) & (S - 1)) | d;
+      }
+      if ((t & 31) == 0) {
+        if (live)
+#pragma unroll
+          for (int m = 0; m < Q; ++m)
+            p.words[((size_t)(t >> 5) * S + warp + walk_warps * m) * p.B + b] =
+                acc[m];
+#pragma unroll
+        for (int m = 0; m < Q; ++m) acc[m] = 0;
+      }
+    }
+  }
+  if (live)
+#pragma unroll
+    for (int m = 0; m < Q; ++m)
+      p.fmap[((size_t)seg * S + warp + walk_warps * m) * p.B + b] = st[m];
+  if (!walker) cp_async_wait<0>();
+}
+
+// B4, pass 2: per row, the last step from the start state as the Pallas
+// kernel takes it (the bit from the raw int32, an arithmetic shift;
+// decision 0 when the start lies outside [0, S)), then the segments' maps
+// from the last segment down give the state entering each segment, and
+// every 32-step word of the walk from that state becomes 32 bit rows.
+// Block: 32 rows by kTbResolveWarps warps.
+__global__ void __launch_bounds__(32 * psk::kTbResolveWarps)
+    viterbi_resolve_kernel(const TbParams p) {
+  __shared__ int enter[psk::kTbMaxSegments][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + lane;
+  const bool live = b < p.B;
+  const int S = p.S;
+  if (warp == 0) {
+    const int raw = live ? p.start[b] : 0;
+    const bool outside = raw < 0 || raw >= S;
+    const int t = p.t_actual - 1;
+    if (live) p.bits[(size_t)t * p.B + b] = (int8_t)((raw >> (p.k - 2)) & 1);
+    const int d = (live && !outside)
+                      ? p.dec[((size_t)t * S + raw) * p.B + b] != 0
+                      : 0;
+    int e = (int)(((unsigned)raw << 1) & (unsigned)(S - 1)) | d;
+    for (int seg = p.segments - 1; seg >= 0; --seg) {
+      enter[seg][lane] = e;
+      e = live ? p.fmap[((size_t)seg * S + e) * p.B + b] : 0;
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  const int nwords = (p.steps + 31) / 32;
+  for (int w = warp; w < nwords; w += psk::kTbResolveWarps) {
+    const int e = enter[(32 * w) / p.seg_len][lane];
+    const uint32_t word = p.words[((size_t)w * S + e) * p.B + b];
+    const int t_end = min(32 * w + 32, p.steps);
+    for (int t = 32 * w; t < t_end; ++t)
+      p.bits[(size_t)t * p.B + b] = (int8_t)((word >> (t & 31)) & 1);
   }
 }
 
@@ -695,16 +881,51 @@ extern "C" int psk_viterbi_acs(const float* llr, const float* pm0,
   return launch_acs(false, p, stream);
 }
 
-// B4.  decisions (T_pad, S, B) int8 (nonzero = 1), start (B,) int32 (taken
-// mod S) -> bits (T_pad, B), rows [0, t_actual) written.
+// B4.  decisions (T_pad, S, B) int8 (nonzero = 1), start (B,) int32 ->
+// bits (T_pad, B), rows [0, t_actual) written; words ((t_actual + 30) /
+// 32, S, B) uint32 and fmap (segments, S, B) int32 are scratch.  A start
+// outside [0, S) gives its first bit from the raw value and reads decision
+// 0 there, as the Pallas kernel does.  (vec, chunk, seg_len, segments,
+// smem, grid, threads) is the plan of
+// viterbi_kernel.traceback_plan, checked by traceback_plan_error; returns
+// cudaErrorInvalidValue for a plan or arguments the kernels do not take,
+// else cudaGetLastError() after the launches (the segment pass, when
+// there are segments, then the resolve pass).
 extern "C" int psk_viterbi_traceback(const int8_t* dec, const int32_t* start,
-                                     int8_t* bits, int S, int k, int t_actual,
-                                     int B, void* stream) {
-  if (bad_code(1, S, k) || t_actual < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const int threads = 128;
-  viterbi_traceback_kernel<<<(B + threads - 1) / threads, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      dec, start, bits, S, k, t_actual, B);
+                                     int8_t* bits, uint32_t* words,
+                                     int32_t* fmap, int S, int k,
+                                     int t_actual, int B, int vec,
+                                     int chunk, int seg_len, int segments,
+                                     int smem, int grid, int threads,
+                                     void* stream) {
+  if (bad_code(1, S, k)
+      || psk::traceback_plan_error(S, t_actual, B, vec, chunk, seg_len,
+                                   segments, smem, grid, threads))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || t_actual == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TbParams p = {dec, start, bits, words, fmap, S, k, t_actual, B,
+                      vec, chunk, seg_len, segments, t_actual - 1};
+  if (segments > 0) {
+    const int q = S / psk::traceback_walk_warps(S);
+    const void* kern =
+        q == 1    ? (const void*)viterbi_segments_kernel<1>
+        : q == 2  ? (const void*)viterbi_segments_kernel<2>
+        : q == 4  ? (const void*)viterbi_segments_kernel<4>
+        : q == 8  ? (const void*)viterbi_segments_kernel<8>
+        : q == 16 ? (const void*)viterbi_segments_kernel<16>
+                  : (const void*)viterbi_segments_kernel<32>;
+    if (smem > kSmemLimit) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    void* args[] = {const_cast<TbParams*>(&p)};
+    const cudaError_t e =
+        cudaLaunchKernel(kern, grid, threads, args, smem, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  viterbi_resolve_kernel<<<(B + 31) / 32, 32 * psk::kTbResolveWarps, 0,
+                           st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ Three pieces, as for every kernel of the port:
   what bounds them on an H100), built with nvcc for sm_90a into
   ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.  One
   wrapper call launches two kernels: stage A (timing and the raw phase,
-  parallel over channel and symbol tile, kernel B5's tile loops) and
+  one block per group of channels, kernel B5's block loop) and
   stage B (trend, unwrap scan, FIR, derotation, slicing, carry; one block
   per group of channels walking the block in chunks of symbols).
   :func:`launch_plan` sizes both in Python.
@@ -50,14 +50,14 @@ TIMING_HEADER = CSRC / "timing.cuh"     # shared with kernel B5
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Constants of csrc/timing.cuh and csrc/demod_full.cu that the launch plan
-# needs (chip_smoke.py holds the plan's shared memory against the
-# library's own count).
-TARGET_THREADS = 65536         # 16 warps in flight on each of 132 SMs
-TIMING_LANES = 32              # stage A, bins layout: channels per block
-TIMING_CHUNK = 8               # stage A: symbols per shared-memory exchange
-TIMING_MAX_BINS_SPS = 32       # stage A: one warp per bin up to this sps
-TIMING_WIDE_THREADS = 32       # stage A, wide layout: channels per block
+# Constants of csrc/timing.cuh and csrc/demod_full.cu that the launch plans
+# need (chip_smoke.py holds the plans' shared memory against the libraries'
+# own counts).
+TIMING_THREADS = 512           # timing loops (B1 stage A, B5): threads
+TIMING_MAX_GROUP = 8           # ... channels a block (a 32-byte sector)
+TIMING_MAX_CHUNK = 64          # ... symbols a staged chunk, at most
+TIMING_STAGE_BYTES = 80 * 1024  # ... bytes a staged chunk, at most
+TIMING_MAX_SMEM = 232448       # ... shared memory a block (an H100's)
 TRACK_GROUP = 8                # stage B: channels per block
 TRACK_MAX_CHUNK = 64           # stage B: symbols per chunk
 TREND_HIST = UNWRAP_TREND_LEN - 1
@@ -72,49 +72,83 @@ def state_rows(phase_avg: int, k: int = UNWRAP_TREND_LEN) -> int:
     return -(-raw // 8) * 8
 
 
-def pick_tile(channels: int, symbols: int, threads_per_tile: int) -> int:
-    """Symbols per thread of the timing tile loops (stage A here, kernel
-    B5): the largest power of two >= 8 that still gives TARGET_THREADS
-    threads (more symbols per thread re-read fewer window rows from L2;
-    fewer keep more warps in flight), within the grid's 65535 tiles.
-    ``threads_per_tile``: threads per (channel, tile), sps for the bins
-    layout, 1 for the wide one (csrc/timing.cuh)."""
-    per = channels * threads_per_tile
-    tile = 8
-    while tile < symbols and per * -(-symbols // (2 * tile)) >= TARGET_THREADS:
-        tile *= 2
-    while -(-symbols // tile) > 65535:
-        tile *= 2
-    return tile
+class TimingPlan(NamedTuple):
+    """How the timing loops of csrc/timing.cuh (kernel B5, and B1's stage
+    A) are launched: one block per group of channels over the whole block
+    of symbols.  The kernels check it (``timing_plan_error``)."""
+    group: int                  # channels a block
+    chunk: int                  # symbols a staged chunk (double-buffered)
+    vec: int                    # bytes a staging copy moves: 16, 8 or 4
+    smem: int                   # dynamic shared memory a block, bytes
+    grid: int                   # blocks
+    threads: int                # threads a block
+
+
+@functools.lru_cache(maxsize=256)
+def timing_plan(channels: int, sps: int, align: int = 16) -> TimingPlan:
+    """Plan of the timing loops for ``channels`` channels at ``sps``, the
+    planes' addresses multiples of ``align`` bytes.  The group is 8
+    channels (one 32-byte sector of each row) unless one staged symbol
+    would not fit TIMING_STAGE_BYTES, then 4, 2, 1; the chunk as many
+    symbols (up to TIMING_MAX_CHUNK; fewer chunks mean fewer barriers) as
+    fit, and the block within TIMING_MAX_SMEM where it can be; copies of 16
+    bytes where the group, the row stride and the addresses allow it, else
+    8, else 4."""
+    def stage(group, chunk):          # re and im, chunk + (chunk + 1) symbols
+        return 8 * sps * group * (2 * chunk + 1)
+
+    group = next((g for g in (8, 4, 2) if stage(g, 1) <= TIMING_STAGE_BYTES),
+                 1)
+    chunk = max(1, min(TIMING_MAX_CHUNK,
+                       (TIMING_STAGE_BYTES // (8 * sps * group) - 1) // 2))
+    vec = next(v for v in (16, 8, 4)
+               if (4 * group) % v == 0 and (4 * channels) % v == 0
+               and align % v == 0)
+    pairs = sps * group
+
+    def smem(chunk):                  # csrc/timing.cuh, timing_smem_bytes
+        parts = max(1, min(chunk, TIMING_THREADS // pairs))
+        return 4 * (2 * 2 * (2 * chunk + 1) * pairs
+                    + chunk * (pairs + group) + chunk * pairs
+                    + 2 * parts * pairs + 4 * pairs)
+
+    while chunk > 1 and smem(chunk) > TIMING_MAX_SMEM:
+        chunk -= 1
+    return TimingPlan(group, chunk, vec, smem(chunk), -(-channels // group),
+                      TIMING_THREADS)
+
+
+def plane_align(*planes) -> int:
+    """The largest power of two (at most 16) dividing the byte addresses of
+    the non-empty ``planes``: what the timing loops' copies may assume."""
+    align = 16
+    for t in planes:
+        if t.numel():
+            ptr = t.data_ptr()
+            align = min(align, ptr & -ptr)
+    return align
 
 
 class LaunchPlan(NamedTuple):
     """How one wrapper call launches B1's two stages (csrc/demod_full.cu).
-    Grids and blocks are CUDA (x, y) sizes; shared memory is bytes per
-    block; scratch maps each buffer the wrapper allocates to its shape."""
-    timing_layout: str          # "bins" (sps <= 32) or "wide"
-    tile: int                   # stage A: output symbols per tile
-    timing_grid: tuple
-    timing_block: tuple
-    timing_smem: int
+    Grids and blocks are CUDA x sizes; shared memory is bytes per block;
+    scratch maps each buffer the wrapper allocates to its shape."""
+    timing: TimingPlan          # stage A
     chunk: int                  # stage B: symbols per chunk
     group: int                  # stage B: channels per block
-    track_grid: tuple
-    track_block: tuple
+    track_grid: int
+    track_block: int
     track_smem: int
     scratch: dict
 
 
-def launch_plan(C: int, S: int, sps: int, phase_avg: int) -> LaunchPlan:
+@functools.lru_cache(maxsize=256)
+def launch_plan(C: int, S: int, sps: int, phase_avg: int,
+                align: int = 16) -> LaunchPlan:
     """Pure-Python launch plan of :func:`demod_full_tm` for C channels,
-    S symbols; the same sizes as the kernels' own (``psk_demod_full_smem``
-    in csrc/demod_full.cu)."""
-    bins = sps <= TIMING_MAX_BINS_SPS
-    # At least two tiles past 8 symbols: no thread walks the whole block.
-    tile = min(pick_tile(C, S, sps if bins else 1), max(8, -(-S // 2)))
-    lanes = TIMING_LANES if bins else TIMING_WIDE_THREADS
-    timing_smem = 4 * sps * (TIMING_CHUNK * TIMING_LANES if bins
-                             else TIMING_WIDE_THREADS)
+    S symbols, the planes' addresses multiples of ``align`` bytes; the same
+    sizes as the kernels' own (``psk_demod_full_smem`` in
+    csrc/demod_full.cu)."""
     per_warp = 32 // TRACK_GROUP
     chunk = min(TRACK_MAX_CHUNK, -(-S // per_warp) * per_warp)
     n1 = phase_avg - 1
@@ -123,12 +157,9 @@ def launch_plan(C: int, S: int, sps: int, phase_avg: int) -> LaunchPlan:
     track_smem = 4 * (2 * buffer + n1 + 1 + chunk // per_warp * TRACK_GROUP
                       + 3 * TRACK_GROUP)
     return LaunchPlan(
-        timing_layout="bins" if bins else "wide", tile=tile,
-        timing_grid=(-(-C // lanes), -(-S // tile)),
-        timing_block=(lanes, sps if bins else 1), timing_smem=timing_smem,
-        chunk=chunk, group=TRACK_GROUP,
-        track_grid=(-(-C // TRACK_GROUP), 1),
-        track_block=(chunk * TRACK_GROUP, 1), track_smem=track_smem,
+        timing=timing_plan(C, sps, align), chunk=chunk, group=TRACK_GROUP,
+        track_grid=-(-C // TRACK_GROUP), track_block=chunk * TRACK_GROUP,
+        track_smem=track_smem,
         scratch={"sel_re": (S, C), "sel_im": (S, C), "raw": (S, C),
                  "first_bad": (2, sps, C)})
 
@@ -342,11 +373,11 @@ def load_library():
     lib.psk_demod_full_tm.restype = i32
     lib.psk_demod_full_tm.argtypes = (
         [vp, vp, i64] + [vp] * 14 + [i32] * 9
-        + [ctypes.c_float, i32, i32, i32, vp])
+        + [ctypes.c_float] + [i32] * 5 + [vp])
     lib.psk_demod_full_max_smem.restype = i32
     lib.psk_demod_full_max_smem.argtypes = []
     lib.psk_demod_full_smem.restype = i64
-    lib.psk_demod_full_smem.argtypes = [i32, i32, i32, i32]
+    lib.psk_demod_full_smem.argtypes = [i32] * 5
     return lib, log
 
 
@@ -398,11 +429,11 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     dev = x_re.device
     T, C = x_re.shape
     S = T // sps
-    plan = launch_plan(C, S, sps, phase_avg)
+    plan = launch_plan(C, S, sps, phase_avg, plane_align(*planes[:4]))
     lib, _ = load_library()
     with torch.cuda.device(dev):
         limit = lib.psk_demod_full_max_smem()
-        for stage, smem in (("stage A (timing)", plan.timing_smem),
+        for stage, smem in (("stage A (timing)", plan.timing.smem),
                             ("stage B (tracking)", plan.track_smem)):
             if smem > limit:
                 raise ValueError(
@@ -413,9 +444,8 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
                               debug_ports)
         o_sre, o_sim, o_phase, o_bits, o_idx = outs
         new_state = torch.empty_like(state_planes)
-        sel_re, sel_im, raw = (
-            torch.empty(plan.scratch[k], dtype=torch.float32, device=dev)
-            for k in ("sel_re", "sel_im", "raw"))
+        sel_re, sel_im, raw = torch.empty(
+            (3,) + plan.scratch["raw"], dtype=torch.float32, device=dev)
         first_bad = torch.empty(plan.scratch["first_bad"], dtype=torch.int32,
                                 device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -427,8 +457,8 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
             _ptr(sel_im), _ptr(raw), _ptr(first_bad), C, S, sps, num_avg,
             phase_avg, m, int(bool(diff)), int(pack_out),
             int(soft_i8_scale is not None),
-            float(soft_i8_scale or 0.0), state_planes.shape[0], plan.tile,
-            plan.chunk, ctypes.c_void_p(stream))
+            float(soft_i8_scale or 0.0), state_planes.shape[0],
+            *plan.timing[:3], plan.chunk, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")
     demod_full_tm.launches += 1

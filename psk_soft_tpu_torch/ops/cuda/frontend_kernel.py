@@ -14,10 +14,11 @@ Three pieces, as for every kernel of the port:
 
 The input is the [window | block] stream read through two pointers (the
 carry window, then the block), as kernel B1 reads it, so the caller never
-concatenates them.  The kernel slides its window sums while the plain
-version takes cumsum differences: on a modulated signal the argmax is well
-separated and the two agree exactly; where two bins' sums differ by a few
-ulps (pure noise) they may pick different bins.
+concatenates them.  The kernel carries each window sum through the block
+as the difference of two running sums, the plain version takes cumsum
+differences: NaN and inf give the same picks, and on a modulated signal
+the argmax is well separated and the two agree exactly; where two bins'
+sums differ by a few ulps (pure noise) they may pick different bins.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from ...ops import timing
 from ...utils.build import build_shared
 from .demod_kernel import (CSRC, NVCC_FLAGS, TIMING_HEADER, nvcc_path,
-                           pick_tile)
+                           plane_align, timing_plan)
 
 SOURCE = CSRC / "frontend.cu"
 
@@ -83,13 +84,11 @@ def load_library():
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.psk_timing_frontend_tm.restype = i32
     lib.psk_timing_frontend_tm.argtypes = (
-        [vp, vp, i64, vp, vp, vp, vp, vp] + [i32] * 5 + [vp])
+        [vp, vp, i64, vp, vp, vp, vp, vp] + [i32] * 7 + [vp])
     lib.psk_timing_frontend_max_smem.restype = i32
     lib.psk_timing_frontend_max_smem.argtypes = []
     lib.psk_timing_frontend_smem.restype = i64
-    lib.psk_timing_frontend_smem.argtypes = [i32]
-    lib.psk_timing_frontend_threads_per_tile.restype = i32
-    lib.psk_timing_frontend_threads_per_tile.argtypes = [i32]
+    lib.psk_timing_frontend_smem.argtypes = [i32] * 3
     return lib, log
 
 
@@ -122,14 +121,13 @@ def timing_frontend_tm(win_re, win_im, x_re, x_im, *, sps: int,
     if not all(t.is_contiguous() for t in planes):
         raise ValueError("planes must be contiguous")
     dev = x_re.device
+    plan = timing_plan(C, sps, plane_align(*planes))
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        smem = lib.psk_timing_frontend_smem(sps)
-        if smem > lib.psk_timing_frontend_max_smem():
-            raise ValueError(f"sps {sps} needs {smem} bytes of shared "
+        if plan.smem > lib.psk_timing_frontend_max_smem():
+            raise ValueError(f"sps {sps} needs {plan.smem} bytes of shared "
                              f"memory per block, more than this device "
                              f"allows")
-        tile = pick_tile(C, S, lib.psk_timing_frontend_threads_per_tile(sps))
         sel_re = torch.empty((S, C), dtype=torch.float32, device=dev)
         sel_im = torch.empty((S, C), dtype=torch.float32, device=dev)
         idx = torch.empty((S, C), dtype=torch.int32, device=dev)
@@ -137,7 +135,7 @@ def timing_frontend_tm(win_re, win_im, x_re, x_im, *, sps: int,
         rc = lib.psk_timing_frontend_tm(
             _ptr(win_re), _ptr(win_im), win_re.shape[0], _ptr(x_re),
             _ptr(x_im), _ptr(sel_re), _ptr(sel_im), _ptr(idx), C, S, sps,
-            num_avg, tile, ctypes.c_void_p(stream))
+            num_avg, *plan[:3], ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"timing_frontend_tm launch failed: CUDA error "
                            f"{rc}")

@@ -8,7 +8,9 @@ Three pieces per kernel, as for every kernel of the port:
   ``build/psk_soft_tpu_torch/`` at first use and loaded with ctypes.  B2
   and B3 share one ACS core: a decode row's states in one warp's
   registers, LLRs staged ahead in shared memory; :func:`launch_plan` sizes
-  their blocks in Python.
+  their blocks in Python.  B4 composes the walk from segments walked back
+  from every state; :func:`traceback_plan` sizes it and the kernels check
+  the plan (``csrc/traceback_plan.h``).
 * The plain-PyTorch versions :func:`viterbi_fused_ref`,
   :func:`viterbi_acs_ref` and :func:`viterbi_traceback_ref`, on any
   device, step by step as the Pallas bodies compute.
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from ...utils.build import REPO_ROOT, build_shared
-from .demod_kernel import NVCC_FLAGS, TIMING_HEADER, nvcc_path
+from .demod_kernel import NVCC_FLAGS, TIMING_HEADER, nvcc_path, plane_align
 
 SOURCE = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "viterbi.cu"
 MAX_N = 8                    # code outputs per step the kernels take
@@ -56,6 +58,17 @@ FUSED_MAX_STEPS = 1472       # B2's longest trellis at K <= 9 ...
 FUSED_MAX_STEPS_K10 = 704    # ... and at K10
 ACS_ROWS = 8                 # B3: rows a block ...
 WRITER_WARPS = 4             # ... and warps that stage and write out
+# B4's plan (traceback_plan); csrc/traceback_plan.h holds the kernels' side.
+PLAN_HEADER = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "traceback_plan.h"
+TB_ROWS = 32                 # rows a segment block (a 32-byte sector)
+TB_WALK_WARPS = 16           # walker warps a block, at most
+TB_COPY_WARPS = 3            # warps that stage the decision tiles
+TB_BUFFERS = 4               # tiles in shared memory, three ahead
+TB_TILE_BYTES = 24 * 1024    # bytes a tile, about ...
+TB_MAX_CHUNK = 64            # ... and at most this many steps
+TB_TARGET_BLOCKS = 256       # segment blocks wanted, about two an SM
+TB_MIN_SEGMENT = 64          # steps a segment, at least (a multiple of 32)
+TB_MAX_SEGMENTS = 32         # segments, at most (pass 2 chains their maps)
 
 
 def butterfly_signs(code) -> np.ndarray:
@@ -142,6 +155,45 @@ def launch_plan(s_count: int, n: int, t: int, b: int,
                       -(-b // w), 32 * (warps + (0 if fused else WRITER_WARPS)))
 
 
+class TracebackPlan(NamedTuple):
+    """How one launch of B4 is sized; csrc/traceback_plan.h checks it."""
+    vec: int                    # bytes a staging copy moves: 16, 4 or 1
+    chunk: int                  # Tc: trellis steps a staged tile
+    seg_len: int                # steps a segment (a multiple of 32)
+    segments: int               # segments over the t_actual - 1 steps
+    smem: int                   # TB_BUFFERS tiles of (Tc, S, TB_ROWS) bytes
+    grid: int                   # row groups x segments
+    threads: int                # walker warps and TB_COPY_WARPS
+
+
+def traceback_plan(s_count: int, b: int, t: int,
+                   align: int = 16) -> TracebackPlan:
+    """Launch plan of :func:`viterbi_traceback` for ``s_count`` states,
+    ``b`` rows and ``t`` steps, the plane's base address a multiple of
+    ``align`` bytes.  The walk is composed of segments of the t - 1 steps
+    before the last (pass 2 takes the last from the start state): about
+    TB_TARGET_BLOCKS blocks of TB_ROWS rows x one segment, at most
+    TB_MAX_SEGMENTS, at least TB_MIN_SEGMENT steps each; copies of 16
+    bytes where B and the address allow it, else 4, else 1; tiles of about
+    TB_TILE_BYTES."""
+    if (s_count < 2 or s_count > 2 ** (MAX_K - 1) or s_count & (s_count - 1)
+            or t < 0 or b < 0):
+        raise ValueError(f"no traceback launch for S={s_count}, t={t}, "
+                         f"B={b}")
+    vec = next(v for v in (16, 4, 1) if b % v == 0 and align % v == 0)
+    steps = max(t - 1, 0)
+    groups = -(-b // TB_ROWS)
+    want = min(TB_MAX_SEGMENTS, max(1, -(-TB_TARGET_BLOCKS // max(groups, 1))))
+    seg_len = max(TB_MIN_SEGMENT, -(-steps // (32 * want)) * 32)
+    segments = -(-steps // seg_len)
+    chunk = max(1, min(TB_MAX_CHUNK, TB_TILE_BYTES // (s_count * TB_ROWS),
+                       seg_len))
+    return TracebackPlan(vec, chunk, seg_len, segments,
+                         TB_BUFFERS * chunk * s_count * TB_ROWS,
+                         groups * segments,
+                         32 * (min(s_count, TB_WALK_WARPS) + TB_COPY_WARPS))
+
+
 def fused_smem_bytes(s_count: int, t: int, n: int = MAX_N) -> int:
     """Shared memory of one fused-kernel block (:func:`launch_plan`)."""
     return launch_plan(s_count, n, t, 0, True).smem
@@ -213,14 +265,18 @@ def _acs_steps(llr_t, pm0, exp_flat, s_count: int, n: int, t_actual: int):
 def _walk_back(decs, start, *, k: int, s_count: int, t_actual: int,
                t_pad: int) -> torch.Tensor:
     """Survivor walk from ``start`` (B,) over decs[t] (S, B) -> (T_pad, B)
-    int8 bits, rows past t_actual zero."""
+    int8 bits, rows past t_actual zero.  A start outside [0, S) follows
+    the Pallas ``_back_kernel``: its bit from the raw value (an arithmetic
+    shift), decision 0 (the one-hot lookup matches no state)."""
     b = start.shape[0]
     bits = torch.zeros((t_pad, b), dtype=torch.int8, device=start.device)
-    s = start.to(torch.int64) & (s_count - 1)
+    s = start.to(torch.int64)
+    inside = (s >= 0) & (s < s_count)
     for t in range(t_actual - 1, -1, -1):
         bits[t] = ((s >> (k - 2)) & 1).to(torch.int8)
-        d = torch.gather(decs[t], 0, s[None])[0] != 0
-        s = ((s << 1) & (s_count - 1)) | d.to(torch.int64)
+        d = torch.gather(decs[t], 0, (s & (s_count - 1))[None])[0] != 0
+        s = ((s << 1) & (s_count - 1)) | (d & inside).to(torch.int64)
+        inside = True                     # every later state lies in [0, S)
     return bits
 
 
@@ -264,7 +320,7 @@ def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
     path, log = build_shared(SOURCE, "viterbi", [nvcc_path()], NVCC_FLAGS,
-                             headers=(TIMING_HEADER,))
+                             headers=(TIMING_HEADER, PLAN_HEADER))
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.psk_viterbi_fused.restype = i32
@@ -274,8 +330,23 @@ def load_library():
     lib.psk_viterbi_plan.restype = i32
     lib.psk_viterbi_plan.argtypes = [i32] * 5 + [vp]
     lib.psk_viterbi_traceback.restype = i32
-    lib.psk_viterbi_traceback.argtypes = [vp] * 3 + [i32] * 4 + [vp]
+    lib.psk_viterbi_traceback.argtypes = [vp] * 5 + [i32] * 11 + [vp]
     return lib, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_plan_check():
+    """The kernel's own check of B4's plan (csrc/traceback_plan.h), built
+    with the host C++ compiler, so it runs without a card.  Returns the
+    ctypes function ``psk_traceback_plan_error(S, t_actual, B, *plan)``:
+    0 for a plan the kernels take."""
+    path, _ = build_shared(PLAN_HEADER, "traceback_plan", ["g++"],
+                           ["-x", "c++", "-std=c++17", "-O1", "-shared",
+                            "-fPIC", "-DPSK_TRACEBACK_PLAN_ONLY"])
+    fn = ctypes.CDLL(str(path)).psk_traceback_plan_error
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 10
+    return fn
 
 
 def _ptr(t):
@@ -359,21 +430,31 @@ def viterbi_acs(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
 def viterbi_traceback(dec, start, *, k: int, s_count: int,
                       t_actual: int) -> torch.Tensor:
     """B4: (T_pad, S, B) int8 decisions (nonzero = 1) and (1, B) int32
-    start states (taken mod S) -> (T_pad, B) int8 bits; bit t is the input
-    bit that entered the state after step t."""
+    start states -> (T_pad, B) int8 bits; bit t is the input bit that
+    entered the state after step t.  A start outside [0, S) takes its
+    first bit from the raw value and reads decision 0 at that step, as the
+    Pallas kernel does."""
     if dec.device.type == "cpu":
         return viterbi_traceback_ref(dec, start, k=k, s_count=s_count,
                                      t_actual=t_actual)
     dev = _cuda_device(dec, start)
     _check_traceback(dec, start, k=k, s_count=s_count, t_actual=t_actual)
     t_pad, _, b = dec.shape
+    plan = traceback_plan(s_count, b, t_actual, plane_align(dec))
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        bits = torch.zeros((t_pad, b), dtype=torch.int8, device=dev)
+        bits = torch.empty((t_pad, b), dtype=torch.int8, device=dev)
+        if t_actual < t_pad:
+            bits[t_actual:].zero_()
+        steps = max(t_actual - 1, 0)
+        words = torch.empty((-(-steps // 32), s_count, b), dtype=torch.int32,
+                            device=dev)
+        fmap = torch.empty((plan.segments, s_count, b), dtype=torch.int32,
+                           device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psk_viterbi_traceback(
-            _ptr(dec), _ptr(start), _ptr(bits), s_count, k, t_actual, b,
-            ctypes.c_void_p(stream))
+            _ptr(dec), _ptr(start), _ptr(bits), _ptr(words), _ptr(fmap),
+            s_count, k, t_actual, b, *plan, ctypes.c_void_p(stream))
     _raise_on(rc, "viterbi_traceback")
     viterbi_traceback.launches += 1
     return bits

@@ -423,6 +423,31 @@ def test_chain_engine_depth_planes_and_ragged_pushes(jax_run):
     assert sorted(_key(ragged.pop_frames())) == want
 
 
+def test_push_to_channel_minus_one_matches_jax(jax_run):
+    """push(-1, ...) aliases the last channel's staging in both packages
+    (runtime/chain_engine.py's push in each): the stream's first three
+    blocks pushed channel by channel, the last channel as -1, give the same
+    frames in both, and the same as pushing it as channel C - 1."""
+    blocks = _blocks(jax_run["x"])[:3]
+
+    def drive(eng, last):
+        frames = []
+        for blk in blocks:
+            for c in range(C - 1):
+                eng.push(c, blk[c])
+            eng.push(last, blk[C - 1])
+            frames += eng.step() or []
+        return frames + eng.flush()
+
+    jeng = JaxChainEngine(JaxDemodConfig(**KW), C, jax_run["jfmt"], JAX_K7,
+                          JAX_CRC16, block_symbols=S, interpret=True)
+    want = _key(drive(jeng, -1))
+    got = _key(drive(_port_engine(jax_run["jfmt"]), -1))
+    assert got == want
+    assert any(f[0] == C - 1 for f in got)
+    assert got == _key(drive(_port_engine(jax_run["jfmt"]), C - 1))
+
+
 def test_chain_engine_validation_and_later_steps():
     cfg = DemodConfig(**KW)
     fmt = FrameFormat(uw=(0, 1, 2, 3) * 4, payload=16, m=4)

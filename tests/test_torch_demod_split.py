@@ -37,35 +37,36 @@ def _old_kernel_took(sps, phase_avg):
     (1000, 512, 8, 50),          # C not a multiple of a channel group
     (1024, 1, 8, 50), (1024, 5, 8, 50), (1024, 37, 8, 50),
     (1024, 129, 8, 50),          # S < 8, S < n1, S not a chunk multiple
-    (256, 512, 40, 50),          # sps > 32: stage A's wide layout
+    (256, 512, 40, 50),          # sps > 32: a shorter staged chunk
     (128, 512, 32, 50), (128, 512, 33, 50),
     (7, 3, 2, 10),               # a few channels, the smallest phase_avg
-    (1, 100_000_000, 2, 10),     # the tile grid's 65535 cap
-    (8192, 512, 8, 50),          # enough channels for one tile: two kept
+    (1, 100_000_000, 2, 10),     # one channel, a very long block
+    (8192, 512, 8, 50),          # 1024 stage-A blocks
 ])
 def test_launch_plan_edges(C, S, sps, phase_avg):
     plan = dk.launch_plan(C, S, sps, phase_avg)
-    # Stage A: tiles cover S within the grid's limit, lanes cover C.
-    lanes, per_tile = plan.timing_block
-    assert plan.timing_grid[1] * plan.tile >= S > (plan.timing_grid[1] - 1
-                                                   ) * plan.tile
-    assert plan.timing_grid[1] <= 65535
-    assert plan.timing_grid[1] >= 2 or S <= 8  # no thread walks all of S
-    assert plan.timing_grid[0] * lanes >= C > (plan.timing_grid[0] - 1) * lanes
-    if sps <= dk.TIMING_MAX_BINS_SPS:
-        assert plan.timing_layout == "bins" and per_tile == sps
-        assert plan.timing_smem == 4 * dk.TIMING_CHUNK * sps * lanes
-    else:
-        assert plan.timing_layout == "wide" and per_tile == 1
-        assert plan.timing_smem == 4 * sps * lanes
-    assert lanes * per_tile <= 1024
+    # Stage A: one block per group of channels over all of S; groups cover
+    # C, the staged chunks fit, copies fit the rows.
+    tp = plan.timing
+    assert tp.group in (1, 2, 4, 8) and tp.grid == -(-C // tp.group)
+    assert 1 <= tp.chunk <= dk.TIMING_MAX_CHUNK
+    assert 8 * sps * tp.group * (2 * tp.chunk + 1) <= dk.TIMING_STAGE_BYTES \
+        or (tp.group, tp.chunk) == (1, 1)
+    assert (4 * tp.group) % tp.vec == 0 and (4 * C) % tp.vec == 0
+    pairs = sps * tp.group
+    parts = max(1, min(tp.chunk, dk.TIMING_THREADS // pairs))
+    assert tp.smem == 4 * (2 * 2 * (2 * tp.chunk + 1) * pairs
+                           + tp.chunk * (2 * pairs + tp.group)
+                           + 2 * parts * pairs + 4 * pairs)
+    assert tp.smem <= dk.TIMING_MAX_SMEM or tp.chunk == 1
+    assert tp.threads == dk.TIMING_THREADS <= 1024
     # Stage B: whole warps of (symbol, channel), one chunk when S is small.
     assert plan.chunk % (32 // plan.group) == 0
     assert plan.chunk == min(dk.TRACK_MAX_CHUNK, -(-S // 4) * 4)
-    assert plan.track_block == (plan.chunk * plan.group, 1)
-    assert plan.track_block[0] % 32 == 0 and plan.track_block[0] <= 1024
-    assert plan.track_grid[0] * plan.group >= C > (plan.track_grid[0] - 1
-                                                   ) * plan.group
+    assert plan.track_block == plan.chunk * plan.group
+    assert plan.track_block % 32 == 0 and plan.track_block <= 1024
+    assert plan.track_grid * plan.group >= C > (plan.track_grid - 1
+                                                ) * plan.group
     n1 = phase_avg - 1
     hist = (n1 + plan.chunk) + 2 * (8 + plan.chunk) + 3 * (1 + plan.chunk)
     assert plan.track_smem == 4 * (2 * hist * plan.group + n1 + 1
@@ -77,11 +78,12 @@ def test_launch_plan_edges(C, S, sps, phase_avg):
 
 def test_launch_plan_flagship_numbers():
     plan = dk.launch_plan(1024, 512, 8, 50)
-    assert (plan.tile, plan.timing_grid, plan.timing_block) == (
-        64, (32, 8), (32, 8))
-    assert (plan.chunk, plan.track_grid, plan.track_block) == (
-        64, (128, 1), (512, 1))
-    assert (plan.timing_smem, plan.track_smem) == (8192, 29736)
+    assert tuple(plan.timing) == (8, 64, 16, 172032, 128, 512)
+    assert (plan.chunk, plan.track_grid, plan.track_block) == (64, 128, 512)
+    assert plan.track_smem == 29736
+    assert dk.launch_plan(1000, 512, 8, 50, align=8).timing.vec == 8
+    assert dk.launch_plan(7, 3, 2, 10).timing.vec == 4
+    assert dk.launch_plan(256, 512, 40, 50).timing[:3] == (8, 15, 16)
 
 
 @pytest.mark.parametrize("sps,phase_avg", [
@@ -92,7 +94,7 @@ def test_launch_plan_takes_every_shape_the_old_kernel_took(sps, phase_avg):
     assert _old_kernel_took(sps, phase_avg)
     for S in (1, 37, 512):
         plan = dk.launch_plan(1024, S, sps, phase_avg)
-        assert max(plan.timing_smem, plan.track_smem) <= H100_SMEM
+        assert max(plan.timing.smem, plan.track_smem) <= H100_SMEM
 
 
 def test_launch_plan_refuses_nothing_the_old_kernel_took():
@@ -103,7 +105,7 @@ def test_launch_plan_refuses_nothing_the_old_kernel_took():
             if not _old_kernel_took(sps, phase_avg):
                 continue
             plan = dk.launch_plan(512, 300, sps, phase_avg)
-            assert max(plan.timing_smem, plan.track_smem) <= H100_SMEM, (
+            assert max(plan.timing.smem, plan.track_smem) <= H100_SMEM, (
                 sps, phase_avg)
 
 

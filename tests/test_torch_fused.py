@@ -87,6 +87,50 @@ def test_frontend_plain_matches_pallas():
     np.testing.assert_allclose(sel_im.numpy(), np.asarray(j_im), atol=1e-5)
 
 
+def test_frontend_plain_matches_pallas_on_poisoned_channels():
+    """A NaN at channel 11's block symbol 100 and +inf at channel 23's
+    symbol 40 (chip_smoke.py phase 3's poison case, scaled to 256
+    symbols): the plain version picks as the Pallas kernel does over the
+    whole block (s_tile = S), where each window sum is a cumsum difference
+    from the start of [window | block] -- sample index equal, decision
+    samples equal where finite and non-finite where the kernel's are.  With
+    s_tile 64 the Pallas kernel restarts its cumsum at each tile and picks
+    otherwise on those two channels (ROADMAP C)."""
+    sps, num_avg, s = 8, 20, 256
+    w = (num_avg - 1) * sps
+    rng = np.random.default_rng(4)
+    cat = np.zeros(((s + num_avg - 1) * sps, C), np.complex64)
+    cat[2::sps] = np.exp(2j * np.pi * rng.integers(0, 4, cat[2::sps].shape)
+                         / 4)
+    cat += (0.01 * rng.standard_normal(cat.shape)).astype(np.complex64)
+    cat.real[w + 100 * sps + 5, 11] = np.nan
+    cat.imag[w + 40 * sps + 3, 23] = np.inf
+    re = torch.from_numpy(np.ascontiguousarray(cat.real))
+    im = torch.from_numpy(np.ascontiguousarray(cat.imag))
+    sel_re, sel_im, idx = frontend_kernel.timing_frontend_tm(
+        re[:w], im[:w], re[w:], im[w:], sps=sps, num_avg=num_avg)
+    j_re, j_im, j_idx = (np.asarray(a) for a in jax_frontend(
+        jnp.asarray(cat.real), jnp.asarray(cat.imag), sps=sps,
+        num_avg=num_avg, s_tile=s, interpret=True))
+    np.testing.assert_array_equal(idx.numpy(), j_idx)
+    np.testing.assert_array_equal(sel_re.numpy(), j_re)   # NaN where NaN
+    np.testing.assert_array_equal(sel_im.numpy(), j_im)
+    bad = np.flatnonzero(~np.isfinite(sel_re.numpy() + sel_im.numpy())
+                         .all(axis=0))
+    assert bad.tolist() == [11, 23]
+    # From the first output whose window reaches the sample (its block
+    # symbol: the window is num_avg - 1 symbols ahead), on to the end of
+    # the block, the poisoned bin is the pick (first NaN; inf, then NaN).
+    assert (idx[100:, 11] == 5).all() and (idx[:100, 11] == 2).all()
+    assert (idx[40:, 23] == 3).all()
+    t_idx = np.asarray(jax_frontend(jnp.asarray(cat.real),
+                                    jnp.asarray(cat.imag), sps=sps,
+                                    num_avg=num_avg, s_tile=64,
+                                    interpret=True)[2])
+    differ = np.flatnonzero((t_idx != j_idx).any(axis=0))
+    assert differ.tolist() == [11, 23]
+
+
 def test_frontend_args_and_empty_window():
     """num_avg 1 (an empty window) and the argument checks."""
     rng = np.random.default_rng(1)
@@ -102,9 +146,10 @@ def test_frontend_args_and_empty_window():
     with pytest.raises(ValueError, match="S\\*sps"):
         frontend_kernel.timing_frontend_tm(empty, empty, x[:60], x[:60],
                                            sps=8, num_avg=1)
-    assert frontend_kernel.pick_tile(1024, 512, 8) == 64
-    assert frontend_kernel.pick_tile(128, 256, 8) == 8
-    assert frontend_kernel.pick_tile(1, 100_000_000, 1) == 2048  # grid cap
+    assert tuple(frontend_kernel.timing_plan(1024, 8)) == (
+        8, 64, 16, 172032, 128, 512)
+    assert tuple(frontend_kernel.timing_plan(128, 8))[:3] == (8, 64, 16)
+    assert frontend_kernel.timing_plan(1, 2000)[:3] == (1, 1, 4)  # wide sps
 
 
 @pytest.mark.parametrize("m,diff", [(4, False), (2, False), (8, False),
