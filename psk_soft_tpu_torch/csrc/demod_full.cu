@@ -15,9 +15,32 @@
 //   rows [n1, n1+8)         trend cos history
 //   rows [n1+8, n1+16)      trend sin history
 //   rows misc+0 .. misc+3   ang_prev, unwrap_acc, last decision re, im
-//   rows misc+4 .. and pad  passed through unchanged
+//   rows misc+4, misc+5     timing_interp: row S-1's last sample (written)
+//   rows misc+6, misc+7     mixed: the channel's M and differential flag
+//   other rows              passed through unchanged
 //
-// Design: two kernels on the caller's stream.
+// Modes (the Pallas kernel's static arguments):
+//   int16 ingest   window and block planes are int16, dequantized as
+//                  i16 * in_scale where a sample is read (timing.cuh);
+//   timing_interp  stage A emits the circular-centroid pick, the sample
+//                  interpolated between its two nearest samples;
+//   matched filter a third launch first, stage 0 (demod_fir_kernel), filters
+//                  the raw [window | block] rows (the window carries
+//                  ntaps-1 extra raw rows) into float32 scratch, and
+//                  stages A and B run on the filtered stream unchanged;
+//   mixed          M and the differential flag per channel from carry rows
+//                  misc+6 and misc+7: the M-th power, correction, slicing
+//                  and re-wrap take the lane's values (a group of channels
+//                  with different M diverges inside a warp).
+//
+// Design: two kernels on the caller's stream (three with a matched filter).
+//
+// Stage 0 (demod_fir_kernel, matched filter only), one block of 256
+// threads per 64 rows x 32 channels: the raw rows it needs ((64 + ntaps -
+// 1) x 32, re and im) staged in shared memory, each thread 8 consecutive
+// outputs of one channel with the 8 raw samples they need next in
+// registers, sliding one row a tap, so a tap costs one shared load per 8
+// fused multiply-adds; f[r] = sum_j taps[j] * raw[r + j] in tap order.
 //
 // Stage A (demod_timing_kernel), one block per group of channels over the
 // whole block of symbols: kernel B5's block loop (timing.cuh: the stream
@@ -66,9 +89,11 @@
 // design (one thread walking all S symbols of a channel, 1024 threads in
 // all) was bound by the latency of each symbol's dependent chain.
 //
-// Not handled here (the Python wrapper raises before launching): int16
-// ingest, fractional timing, an in-kernel matched filter, mixed per-channel
-// modes.
+// With a matched filter, stage 0 writes and stage A reads the filtered
+// planes (4 * ((A-1)*sps + T) * C bytes each way, 37 MB at config 3's 1024
+// x 512 block) and the FIR does 2 * ntaps operations a filtered sample (1.2
+// GFLOP at 65 taps); the scratch round trip, not the FIR, bounds that
+// first design.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -85,6 +110,11 @@ constexpr float kQuarterPi = 0.7853981633974483f;
 constexpr int kGroup = 8;               // channels per stage-B block
 constexpr int kSymsPerWarp = 32 / kGroup;
 constexpr int kMaxThreads = 1024;
+constexpr float kHalfInvPi = 0.15915494309189535f;   // 1 / (2 pi)
+constexpr int kFirChannels = 32;        // stage 0: channels a block
+constexpr int kFirRowThreads = 8;       // ... threads a channel
+constexpr int kFirRowsPer = 8;          // ... outputs a thread
+constexpr int kFirRows = kFirRowThreads * kFirRowsPer;   // rows a block
 
 __device__ __forceinline__ float mth_phase(float re, float im, int m) {
   float zr = re, zi = im;
@@ -106,7 +136,10 @@ __device__ __forceinline__ void store_code(void* plane, int pack,
 }
 
 struct Params {
-  psk::TwoPlanes in;
+  psk::PlanesT<float> in;     // float32 planes, or the filtered scratch
+  psk::PlanesT<int16_t> in16;  // int16 planes (i16 set, no matched filter)
+  int i16;
+  psk::InterpTable itab;  // timing_interp: per-bin cos, sin; sps / 2pi
   float* sel_re;          // (S, C) scratch: decision samples
   float* sel_im;
   float* raw;             // (S, C) scratch: atan2 of the M-th power
@@ -119,12 +152,113 @@ struct Params {
   float* phase;           // (S, C) float32, or null (debug ports off)
   void* bits;             // (S, C) int8 when pack_out, else int32
   void* idx;              // (S, C) like bits, or null (debug ports off)
-  int C, S, sps, num_avg, n1, m, diff, pack_out, soft_i8, state_rows;
+  int C, S, sps, num_avg, n1, misc, m, diff, pack_out, soft_i8, state_rows;
+  int interp, mixed;
   int group, tchunk, vec;  // stage A's plan (timing.cuh)
   int chunk;               // stage B: symbols a chunk
   float soft_scale;
   float m_scale;          // m / (2 pi), rounded once to float
 };
+
+// Stage A/B's stream: sample r of channel c, dequantized.
+__device__ __forceinline__ void stream_sample(const Params& p, int64_t r,
+                                              int c, float& re, float& im) {
+  if (p.i16)
+    p.in16.sample(r, c, re, im);
+  else
+    p.in.sample(r, c, re, im);
+}
+
+// A channel's constellation: M (as the carry holds it), the power its
+// squarings reach, QPSK and BPSK flags, differential decoding.  Static
+// unless mixed, when rows misc+6 and misc+7 hold them (the Pallas
+// kernel's selects: powers 2, 4, 8, 16, else 32; differential above 0.5).
+struct Lane {
+  float mf;
+  int pw;
+  bool is2, is4, diff;
+};
+
+__device__ __forceinline__ Lane lane_mode(const Params& p, int c) {
+  if (!p.mixed)
+    return Lane{(float)p.m, p.m, p.m == 2, p.m == 4, p.diff != 0};
+  const float mf = p.state_in[(int64_t)(p.misc + 6) * p.C + c];
+  const float df = p.state_in[(int64_t)(p.misc + 7) * p.C + c];
+  const int pw = mf == 2.f ? 2 : mf == 4.f ? 4 : mf == 8.f ? 8
+               : mf == 16.f ? 16 : 32;
+  return Lane{mf, pw, mf == 2.f, mf == 4.f, df > 0.5f};
+}
+
+// ---- stage 0 (matched filter) ----
+
+// Dynamic shared memory of a stage-0 block: the raw rows of re and im, and
+// the taps.
+__host__ __device__ __forceinline__ int64_t fir_smem_bytes(int ntaps) {
+  return (int64_t)sizeof(float)
+         * (2 * (kFirRows + ntaps - 1) * kFirChannels + ntaps);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kFirChannels * kFirRowThreads)
+demod_fir_kernel(const __grid_constant__ psk::PlanesT<T> raw, int64_t rows_f,
+                 const float* taps, int ntaps, float* out_re,
+                 float* out_im) {
+  extern __shared__ float fsm[];
+  const int span = kFirRows + ntaps - 1;
+  float* const s_re = fsm;
+  float* const s_im = fsm + span * kFirChannels;
+  float* const s_t = s_im + span * kFirChannels;
+  const int lane = threadIdx.x % kFirChannels;
+  const int rg = threadIdx.x / kFirChannels;
+  const int c = blockIdx.y * kFirChannels + lane;
+  const int64_t r0 = (int64_t)blockIdx.x * kFirRows;
+  const int64_t rows_raw = rows_f + ntaps - 1;
+  for (int i = threadIdx.x; i < ntaps; i += blockDim.x) s_t[i] = taps[i];
+  for (int i = rg; i < span; i += kFirRowThreads) {
+    float re = 0.f, im = 0.f;
+    if (c < raw.C && r0 + i < rows_raw) raw.sample(r0 + i, c, re, im);
+    s_re[i * kFirChannels + lane] = re;
+    s_im[i * kFirChannels + lane] = im;
+  }
+  __syncthreads();
+
+  const int base = rg * kFirRowsPer;
+  float ar[kFirRowsPer], ai[kFirRowsPer], wr[kFirRowsPer], wi[kFirRowsPer];
+#pragma unroll
+  for (int i = 0; i < kFirRowsPer; ++i) {
+    ar[i] = ai[i] = 0.f;
+    wr[i] = s_re[(base + i) * kFirChannels + lane];
+    wi[i] = s_im[(base + i) * kFirChannels + lane];
+  }
+  for (int j = 0; j < ntaps; ++j) {
+    const float t = s_t[j];
+#pragma unroll
+    for (int i = 0; i < kFirRowsPer; ++i) {
+      ar[i] = fmaf(t, wr[i], ar[i]);
+      ai[i] = fmaf(t, wi[i], ai[i]);
+    }
+    if (j + 1 < ntaps) {        // slide: raw row base + 8 + j comes in
+#pragma unroll
+      for (int i = 0; i + 1 < kFirRowsPer; ++i) {
+        wr[i] = wr[i + 1];
+        wi[i] = wi[i + 1];
+      }
+      wr[kFirRowsPer - 1] = s_re[(base + kFirRowsPer + j) * kFirChannels
+                                 + lane];
+      wi[kFirRowsPer - 1] = s_im[(base + kFirRowsPer + j) * kFirChannels
+                                 + lane];
+    }
+  }
+  if (c >= raw.C) return;
+#pragma unroll
+  for (int i = 0; i < kFirRowsPer; ++i) {
+    const int64_t r = r0 + base + i;
+    if (r < rows_f) {
+      out_re[r * raw.C + c] = ar[i];
+      out_im[r * raw.C + c] = ai[i];
+    }
+  }
+}
 
 // ---- stage A ----
 
@@ -135,7 +269,7 @@ struct TimingEmit {
     const int64_t i = (int64_t)o * p.C + c;
     p.sel_re[i] = re;
     p.sel_im[i] = im;
-    p.raw[i] = mth_phase(re, im, p.m);
+    p.raw[i] = mth_phase(re, im, lane_mode(p, c).pw);
     if (p.idx) store_code(p.idx, p.pack_out, i, b);
   }
 };
@@ -151,11 +285,18 @@ struct NoteNonFinite {
   }
 };
 
+template <class T, bool kInterp>
 __global__ void __launch_bounds__(psk::kTimingThreads)
 demod_timing_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
-  psk::timing_block(p.in, p.S, p.sps, p.num_avg, p.group, p.tchunk, p.vec,
-                    smem, TimingEmit{p}, NoteNonFinite{p});
+  if constexpr (sizeof(T) == sizeof(int16_t))
+    psk::timing_block<kInterp>(p.in16, p.S, p.sps, p.num_avg, p.group,
+                               p.tchunk, p.vec, smem, TimingEmit{p},
+                               NoteNonFinite{p}, p.itab);
+  else
+    psk::timing_block<kInterp>(p.in, p.S, p.sps, p.num_avg, p.group,
+                               p.tchunk, p.vec, smem, TimingEmit{p},
+                               NoteNonFinite{p}, p.itab);
 }
 
 // ---- stage B ----
@@ -166,7 +307,9 @@ demod_timing_kernel(const __grid_constant__ Params p) {
 // has left it (o > ti), inf while it holds an inf, else finite.  The first
 // NaN bin, else the first inf bin, is the maximum; with neither, stage A's
 // pick stands.  On a change, re-gather the sample and its raw phase.
-__device__ void apply_nonfinite_rule(const Params& p, int o, int c,
+// (Not under timing_interp, whose pick is no bin's: stage A's carried sums
+// already give the plain rule.)
+__device__ void apply_nonfinite_rule(const Params& p, int o, int c, int pw,
                                      float& sre, float& sim, float& raw) {
   const int hi = o + p.num_avg - 1;
   int b = -1;
@@ -178,8 +321,8 @@ __device__ void apply_nonfinite_rule(const Params& p, int o, int c,
   }
   if (b < 0) return;
   if (b >= p.sps) b -= p.sps;
-  p.in.sample((int64_t)o * p.sps + b, c, sre, sim);
-  raw = mth_phase(sre, sim, p.m);
+  stream_sample(p, (int64_t)o * p.sps + b, c, sre, sim);
+  raw = mth_phase(sre, sim, pw);
   if (p.idx) store_code(p.idx, p.pack_out, (int64_t)o * p.C + c, b);
 }
 
@@ -212,7 +355,8 @@ demod_track_kernel(const __grid_constant__ Params p) {
   const int c0 = blockIdx.x * kGroup;
   const int c = c0 + g;
   const bool live = c < C;
-  const int misc = n1 + 2 * kTrend1;
+  const int misc = p.misc;
+  const Lane mode = lane_mode(p, live ? c : c0);
 
   // Shared memory: two history buffers, the FIR weights, the scan's warp
   // totals, and per channel the running wrap count, unwrap_acc and the
@@ -275,8 +419,8 @@ demod_track_kernel(const __grid_constant__ Params p) {
       sre = p.sel_re[i];
       sim = p.sel_im[i];
       raw = p.raw[i];
-      if (o + p.num_avg - 1 >= first[g])
-        apply_nonfinite_rule(p, o, c, sre, sim, raw);
+      if (!p.interp && o + p.num_avg - 1 >= first[g])
+        apply_nonfinite_rule(p, o, c, mode.pw, sre, sim, raw);
     }
     float c_re, c_im;
     sincosf(raw, &c_im, &c_re);
@@ -329,7 +473,7 @@ demod_track_kernel(const __grid_constant__ Params p) {
       est += w[n1] * u;
 
       float base_r, base_i, corr;
-      if (p.diff) {
+      if (mode.diff) {
         const float prev_re = B[offPR + k * kGroup + g];
         const float prev_im = B[offPI + k * kGroup + g];
         const float pp = prev_re * prev_re + prev_im * prev_im;
@@ -340,24 +484,29 @@ demod_track_kernel(const __grid_constant__ Params p) {
       } else {
         base_r = sre;
         base_i = sim;
-        corr = -est / (float)p.m;
+        corr = -est / mode.mf;
       }
-      if (p.m == 4) corr += kQuarterPi;
+      if (mode.is4) corr += kQuarterPi;
       float cph_r, cph_i;
       sincosf(corr, &cph_i, &cph_r);
       const float s_r = base_r * cph_r - base_i * cph_i;
       const float s_i = base_r * cph_i + base_i * cph_r;
 
       int code;
-      if (p.m == 2) {
+      if (mode.is2) {
         code = s_r < 0.f;
-      } else if (p.m == 4) {
+      } else if (mode.is4) {
         const int sr = s_r < 0.f, si = s_i < 0.f;
         code = (sr ^ si) + 2 * si;
-      } else {
+      } else if (!p.mixed) {
         float ss = atan2f(s_i, s_r) * p.m_scale;
         if (ss < -0.5f) ss += (float)p.m;
         code = (int)floorf(ss + 0.5f) & (p.m - 1);
+      } else {                  // the lane's M: wrap M down to 0
+        float ss = atan2f(s_i, s_r) * (mode.mf * kHalfInvPi);
+        if (ss < -0.5f) ss += mode.mf;
+        code = (int)floorf(ss + 0.5f);
+        if (code >= (int)mode.mf) code -= (int)mode.mf;
       }
 
       const int64_t out = (int64_t)o * C + c;
@@ -395,10 +544,10 @@ demod_track_kernel(const __grid_constant__ Params p) {
 
   // --- carries out, with the M*2pi re-wrap from the last unwrapped phase ---
   const float* const F = bufs + cur * bsz;
-  const float wrapv = kTwoPi * (float)p.m;
   for (int i = tid; i < p.state_rows * kGroup; i += nt) {
     const int r = i / kGroup, gg = i % kGroup;
     if (c0 + gg >= C) continue;
+    const float wrapv = kTwoPi * lane_mode(p, c0 + gg).mf;
     const float u_last = F[(n1 - 1) * kGroup + gg];
     const float wraps = rintf(u_last / wrapv);
     const float off = fabsf(u_last) > wrapv ? wraps * wrapv : 0.f;
@@ -417,7 +566,11 @@ demod_track_kernel(const __grid_constant__ Params p) {
       val = F[offPR + gg];
     else if (r == misc + 3)
       val = F[offPI + gg];
-    else
+    else if (p.interp && (r == misc + 4 || r == misc + 5)) {
+      float lre, lim;             // row S-1's last sample
+      stream_sample(p, (int64_t)p.S * p.sps - 1, c0 + gg, lre, lim);
+      val = r == misc + 4 ? lre : lim;
+    } else
       val = p.state_in[(int64_t)r * C + c0 + gg];
     p.state_out[(int64_t)r * C + c0 + gg] = val;
   }
@@ -430,39 +583,102 @@ cudaError_t allow_smem(const void* kernel, int64_t bytes) {
                               (int)bytes);
 }
 
+template <class T, bool kInterp>
+cudaError_t launch_timing(const Params& p, int64_t smem, cudaStream_t s) {
+  const cudaError_t e =
+      allow_smem((const void*)demod_timing_kernel<T, kInterp>, smem);
+  if (e != cudaSuccess) return e;
+  demod_timing_kernel<T, kInterp>
+      <<<(p.C + p.group - 1) / p.group, psk::kTimingThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_fir(const psk::PlanesT<T>& raw, int64_t rows_f,
+                       const float* taps, int ntaps, float* out_re,
+                       float* out_im, cudaStream_t s) {
+  const int64_t smem = fir_smem_bytes(ntaps);
+  const cudaError_t e = allow_smem((const void*)demod_fir_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((rows_f + kFirRows - 1) / kFirRows),
+                  (unsigned)((raw.C + kFirChannels - 1) / kFirChannels));
+  demod_fir_kernel<T><<<grid, kFirChannels * kFirRowThreads, smem, s>>>(
+      raw, rows_f, taps, ntaps, out_re, out_im);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory per block of stage A (stage 0: sps, its group and
-// chunk) or stage B (stage 1: phase_avg and its chunk), so the wrapper's
-// launch plan can be checked against it.
+// chunk, the element size of the planes it reads, interp), stage B (stage
+// 1: phase_avg and its chunk) or the matched filter's stage 0 (stage 2:
+// its taps), so the wrapper's launch plan can be checked against it.
 extern "C" int64_t psk_demod_full_smem(int stage, int sps, int phase_avg,
-                                       int chunk, int group) {
-  return stage == 0 ? psk::timing_smem_bytes(sps, group, chunk)
-                    : track_smem_bytes(phase_avg - 1, chunk);
+                                       int chunk, int group, int esize,
+                                       int interp, int ntaps) {
+  if (stage == 0)
+    return psk::timing_smem_bytes(sps, group, chunk, esize, interp);
+  return stage == 1 ? track_smem_bytes(phase_avg - 1, chunk)
+                    : fir_smem_bytes(ntaps);
 }
 
-// Launch on `stream`: a memset of first_bad, stage A, stage B.  Pointers
-// are device pointers; phase and idx may be null; sel_re, sel_im, raw
-// ((S, C) float32) and first_bad ((2, sps, C) int32) are scratch.  Returns
-// 0 once all are launched, cudaErrorInvalidValue for arguments the kernels
-// do not take, or the first error of a launch (cudaGetLastError()).
+// Launch on `stream`: with a matched filter (ntaps > 0) stage 0, then a
+// memset of first_bad, stage A, stage B.  Pointers are device pointers;
+// the planes are float32, or int16 when i16 (dequantized as v * in_scale);
+// phase and idx may be null; sel_re, sel_im, raw ((S, C) float32),
+// first_bad ((2, sps, C) int32) and, with a matched filter, filt_re and
+// filt_im (((num_avg-1)*sps + S*sps, C) float32) are scratch.  The window
+// holds (num_avg-1)*sps + ntaps-1 rows (raw samples under a filter).
+// interp_tab (timing_interp) holds cos then sin of j * 2pi / sps, j < sps.
+// Returns 0 once all are launched, cudaErrorInvalidValue for arguments the
+// kernels do not take, or the first error of a launch (cudaGetLastError()).
 extern "C" int psk_demod_full_tm(
-    const float* win_re, const float* win_im, int64_t win_rows,
-    const float* x_re, const float* x_im, const float* state_in,
+    const void* win_re, const void* win_im, int64_t win_rows,
+    const void* x_re, const void* x_im, const float* state_in,
     float* state_out, const float* fir_w, void* soft_re, void* soft_im,
     float* phase, void* bits, void* idx, float* sel_re, float* sel_im,
     float* raw, int* first_bad, int C, int S, int sps, int num_avg,
     int phase_avg, int m, int diff, int pack_out, int soft_i8,
     float soft_scale, int state_rows, int group, int tchunk, int vec,
-    int chunk, void* stream) {
-  Params p;
-  p.in = psk::TwoPlanes{win_re, win_im, x_re, x_im, win_rows, C};
+    int chunk, int i16, float in_scale, int interp,
+    const float* interp_tab, int mixed, const float* mf_taps, int ntaps,
+    float* filt_re, float* filt_im, void* stream) {
+  const int64_t wrows = (int64_t)(num_avg - 1) * sps;
+  const int extra = ntaps > 0 ? ntaps - 1 : 0;
+  const int misc = phase_avg - 1 + 2 * kTrend1;
   if (C < 1 || S < 1 || sps < 2 || num_avg < 2 || phase_avg < kTrend + 1
-      || psk::timing_plan_error(p.in, sps, group, tchunk, vec)
       || chunk < kSymsPerWarp || chunk % kSymsPerWarp
-      || chunk * kGroup > kMaxThreads
-      || win_rows != (int64_t)(num_avg - 1) * sps)
+      || chunk * kGroup > kMaxThreads || win_rows != wrows + extra
+      || ntaps < 0 || (ntaps && (!mf_taps || !filt_re || !filt_im))
+      || (interp && !interp_tab) || state_rows < misc + 8)
     return (int)cudaErrorInvalidValue;
+  // The raw planes as they arrive (stage 0's input under a filter).
+  const psk::PlanesT<float> raw_f{
+      static_cast<const float*>(win_re), static_cast<const float*>(win_im),
+      static_cast<const float*>(x_re), static_cast<const float*>(x_im),
+      win_rows, C};
+  const psk::PlanesT<int16_t> raw_i{
+      static_cast<const int16_t*>(win_re),
+      static_cast<const int16_t*>(win_im),
+      static_cast<const int16_t*>(x_re), static_cast<const int16_t*>(x_im),
+      win_rows, C, in_scale};
+  Params p;
+  const int64_t rows_f = wrows + (int64_t)S * sps;
+  if (ntaps) {                  // stages A and B read the filtered stream
+    p.in = psk::PlanesT<float>{filt_re, filt_im, filt_re + wrows * C,
+                               filt_im + wrows * C, wrows, C};
+    p.i16 = 0;
+  } else {
+    p.in = raw_f;
+    p.in16 = raw_i;
+    p.i16 = i16 != 0;
+  }
+  if (p.i16 ? psk::timing_plan_error(p.in16, sps, group, tchunk, vec)
+            : psk::timing_plan_error(p.in, sps, group, tchunk, vec))
+    return (int)cudaErrorInvalidValue;
+  p.itab = psk::InterpTable{interp_tab, interp_tab ? interp_tab + sps
+                                                   : nullptr,
+                            (float)((double)sps / 6.283185307179586)};
   p.sel_re = sel_re;
   p.sel_im = sel_im;
   p.raw = raw;
@@ -480,11 +696,14 @@ extern "C" int psk_demod_full_tm(
   p.sps = sps;
   p.num_avg = num_avg;
   p.n1 = phase_avg - 1;
+  p.misc = misc;
   p.m = m;
   p.diff = diff;
   p.pack_out = pack_out;
   p.soft_i8 = soft_i8;
   p.state_rows = state_rows;
+  p.interp = interp != 0;
+  p.mixed = mixed != 0;
   p.group = group;
   p.tchunk = tchunk;
   p.vec = vec;
@@ -493,17 +712,24 @@ extern "C" int psk_demod_full_tm(
   p.m_scale = (float)((double)m / 6.283185307179586);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaSuccess;
+  if (ntaps) {
+    e = i16 ? launch_fir(raw_i, rows_f, mf_taps, ntaps, filt_re, filt_im, s)
+            : launch_fir(raw_f, rows_f, mf_taps, ntaps, filt_re, filt_im, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   // 0x7f7f7f7f: no non-finite sample seen (above any symbol index).
-  cudaError_t e = cudaMemsetAsync(first_bad, 0x7f,
-                                  sizeof(int) * 2 * (size_t)sps * C, s);
+  e = cudaMemsetAsync(first_bad, 0x7f, sizeof(int) * 2 * (size_t)sps * C, s);
   if (e != cudaSuccess) return (int)e;
 
-  const int64_t smem_a = psk::timing_smem_bytes(sps, group, tchunk);
-  e = allow_smem((const void*)demod_timing_kernel, smem_a);
-  if (e != cudaSuccess) return (int)e;
-  demod_timing_kernel<<<(C + group - 1) / group, psk::kTimingThreads, smem_a,
-                        s>>>(p);
-  e = cudaGetLastError();
+  const int64_t smem_a = psk::timing_smem_bytes(
+      sps, group, tchunk, p.i16 ? 2 : 4, p.interp);
+  if (p.i16)
+    e = p.interp ? launch_timing<int16_t, true>(p, smem_a, s)
+                 : launch_timing<int16_t, false>(p, smem_a, s);
+  else
+    e = p.interp ? launch_timing<float, true>(p, smem_a, s)
+                 : launch_timing<float, false>(p, smem_a, s);
   if (e != cudaSuccess) return (int)e;
 
   const int64_t smem_b = track_smem_bytes(p.n1, chunk);

@@ -36,9 +36,6 @@ def timing_frontend(cfg: DemodConfig, win_samples, win_energy, seen, xs):
     Returns a dict with sel (..., S), sample_index (..., S) int32, valid and
     prev_exists (..., S) bool, new_win_samples/new_win_energy, seen2.
     """
-    if cfg.timing_interp:
-        raise ValueError("timing_interp is not ported yet (ROADMAP: "
-                         "kernel B1 mode 'timing_interp')")
     S = xs.shape[-2]
     num_avg = cfg.num_avg
     ar = torch.arange(S, dtype=torch.int32, device=xs.device)
@@ -48,8 +45,12 @@ def timing_frontend(cfg: DemodConfig, win_samples, win_energy, seen, xs):
         e_cat = torch.cat([win_energy, e], dim=-2)
         s_cat = torch.cat([win_samples, xs], dim=-2)
         w = timing.windowed_bin_sums(e_cat, num_avg)
-        sample_index, sel = timing.select_decision_samples(
-            s_cat[..., :S, :], w)
+        if cfg.timing_interp:
+            sample_index, sel = timing.select_decision_samples_interp(
+                s_cat.reshape(*s_cat.shape[:-2], -1), w, cfg.sps)
+        else:
+            sample_index, sel = timing.select_decision_samples(
+                s_cat[..., :S, :], w)
         valid = (seen_c + 1 + ar) >= num_avg
         prev_exists = (seen_c + ar) >= num_avg
         new_win_s, new_win_e = s_cat[..., S:, :], e_cat[..., S:, :]

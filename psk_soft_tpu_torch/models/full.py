@@ -1,5 +1,5 @@
 """Single-kernel steady-state pipeline built on kernel B1
-(port of ``psk_soft_tpu/models/full.py:24-297, 352-398``).
+(port of ``psk_soft_tpu/models/full.py:24-306, 352-398``).
 
 Usage: run the feed-forward pipeline (models/blockpsk) through warm-up,
 convert the converged carry with :func:`full_from_ff`, then stream
@@ -25,14 +25,20 @@ from ..ops.cuda import demod_kernel
 from ..ops.phase import UNWRAP_TREND_LEN
 from .psk import DemodOutputs
 
-_MF_LATER = ("a matched filter on the steady kernel is not ported yet "
-             "(ROADMAP: kernel B1 mode 'matched filter')")
-
 
 class FullState(NamedTuple):
-    win_re: torch.Tensor   # ((num_avg-1)*sps, C) float32
-    win_im: torch.Tensor   # ((num_avg-1)*sps, C) float32
+    # ((num_avg-1)*sps + mf_ntaps-1, C) window rows, float32 or int16
+    # (quantize_full_state); raw samples under a matched filter.
+    win_re: torch.Tensor
+    win_im: torch.Tensor
     planes: torch.Tensor   # (state_rows(phase_avg), C) float32
+
+
+def window_rows(cfg: DemodConfig) -> int:
+    """Rows of the kernel's window carry: (num_avg-1)*sps, plus the
+    matched filter's mf_ntaps-1 raw rows of look-back."""
+    extra = cfg.mf_ntaps - 1 if cfg.matched_filter != "none" else 0
+    return (cfg.num_avg - 1) * cfg.sps + extra
 
 
 class FullOutputs(NamedTuple):
@@ -58,20 +64,42 @@ class QuantSoft(NamedTuple):
     scale: float
 
 
-def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def full_from_ff(cfg: DemodConfig, ff_state, raw_win=None,
+                 mixed_params=None) -> FullState:
     """Convert a *converged* channel-batched FFState (or FusedState) carry
     to the kernel's carry, on the state's device.  Host-side numpy, called
-    once at the warm-up -> steady transition."""
+    once at the warm-up -> steady transition.
+
+    Args:
+      raw_win: required under a matched filter: the last
+        ``window_rows(cfg)`` RAW input samples per channel, (C, that)
+        complex (the kernel filters in-kernel, so its window holds raw
+        samples; the FF carry keeps only filtered ones).
+      mixed_params: models/mixed.MixedParams of a mixed-mode bank, written
+        into the carry's mode rows misc+6 (M) and misc+7 (differential) for
+        the kernel's ``mixed`` mode.
+    """
     k = UNWRAP_TREND_LEN
     n1 = cfg.phase_avg - 1
     if n1 < k:
         raise ValueError(f"full pipeline requires phase_avg >= {k + 1}")
-    if cfg.matched_filter != "none":
-        raise ValueError(_MF_LATER)
     device = ff_state.phase_hist.device
     hist = ff_state.phase_hist.cpu().numpy()      # (C, n-1) oldest..newest
     c = hist.shape[0]
-    if hasattr(ff_state, "win_re"):               # FusedState (time-major)
+    if cfg.matched_filter != "none":
+        keep = window_rows(cfg)
+        if raw_win is None or tuple(raw_win.shape) != (c, keep):
+            raise ValueError(
+                f"matched-filter configs need raw_win of shape {(c, keep)} "
+                f"(raw input tail; the FF carry only holds filtered samples)")
+        raw = _host(raw_win)
+        win_re = np.ascontiguousarray(raw.real.T).astype(np.float32)
+        win_im = np.ascontiguousarray(raw.imag.T).astype(np.float32)
+    elif hasattr(ff_state, "win_re"):             # FusedState (time-major)
         win_re = ff_state.win_re.cpu().numpy()
         win_im = ff_state.win_im.cpu().numpy()
     else:                                         # FFState (channel-major)
@@ -96,6 +124,9 @@ def full_from_ff(cfg: DemodConfig, ff_state) -> FullState:
     last_any = ff_state.last_any.cpu().numpy()
     planes[misc + 2] = last_any.real
     planes[misc + 3] = last_any.imag
+    if mixed_params is not None:
+        planes[misc + 6] = _host(mixed_params.m).astype(np.float32)
+        planes[misc + 7] = _host(mixed_params.diff).astype(np.float32)
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return FullState(win_re=to(win_re), win_im=to(win_im), planes=to(planes))
 
@@ -106,14 +137,22 @@ def ff_from_full(cfg: DemodConfig, state: FullState):
     reconfigure.  The state planes are the feed-forward carry in another
     layout: ``planes[:n-1]`` is the unwrapped-phase history (newest ==
     last_phase after the end-of-block re-wrap), ``planes[misc+2/3]`` the
-    previous decision sample.  Host-side numpy, once per property change."""
+    previous decision sample.  Under a matched filter the raw window is
+    filtered here (the ``ops/matched_filter.apply_fir`` convention, float64
+    as in the JAX package) and its last mf_ntaps-1 raw samples become the
+    filter tail.  An int16 window is dequantized first
+    (:func:`dequantize_full_state`).  Host-side numpy, once per property
+    change."""
     from .blockpsk import FFState
+    from ..ops.matched_filter import filter_taps
 
-    if cfg.matched_filter != "none":
-        raise ValueError(_MF_LATER)
     if state.win_re.dtype != torch.float32:
-        raise ValueError("an int16 window (ingest_scale) is not ported yet "
-                         "(ROADMAP: kernel B1 mode 'int16 ingest')")
+        raise ValueError("ff_from_full takes a float32 window; dequantize an "
+                         "int16 one first (dequantize_full_state)")
+    if state.win_re.shape[0] != window_rows(cfg):
+        raise ValueError(f"the window has {state.win_re.shape[0]} rows, the "
+                         f"config needs {window_rows(cfg)} (a matched filter "
+                         f"carries mf_ntaps-1 raw rows more)")
     k = UNWRAP_TREND_LEN
     n1 = cfg.phase_avg - 1
     device = state.planes.device
@@ -122,7 +161,16 @@ def ff_from_full(cfg: DemodConfig, state: FullState):
     misc = n1 + 2 * (k - 1)
     raw = (state.win_re.cpu().numpy().T
            + 1j * state.win_im.cpu().numpy().T).astype(np.complex64)
-    win = raw.reshape(c, cfg.num_avg - 1, cfg.sps)
+    if cfg.matched_filter != "none":
+        taps = np.asarray(filter_taps(cfg), np.float64)
+        L = taps.size
+        sw = np.lib.stride_tricks.sliding_window_view(raw, L, axis=-1)
+        filt = (sw @ taps).astype(np.complex64)             # (C, wlen)
+        mf_tail = raw[:, raw.shape[1] - (L - 1):]
+        win = filt.reshape(c, cfg.num_avg - 1, cfg.sps)
+    else:
+        mf_tail = np.zeros((c, 0), np.complex64)
+        win = raw.reshape(c, cfg.num_avg - 1, cfg.sps)
     hist = np.ascontiguousarray(planes[:n1].T)    # (C, n-1) oldest..newest
     last_any = (planes[misc + 2] + 1j * planes[misc + 3]).astype(np.complex64)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731,E501
@@ -137,39 +185,69 @@ def ff_from_full(cfg: DemodConfig, state: FullState):
         last_phase=to(hist[:, -1].astype(np.float32) if n1 > 0
                       else np.zeros(c, np.float32)),
         last_any=to(last_any),
-        mf_tail=torch.zeros((c, 0), dtype=torch.complex64, device=device),
+        mf_tail=to(mf_tail.astype(np.complex64)),
     )
 
 
-def _kernel_kwargs(cfg: DemodConfig, pack_out, soft_i8_scale, debug_ports):
+def dequantize_full_state(state: FullState, in_scale: float) -> FullState:
+    """Inverse of :func:`quantize_full_state`: float32 window planes (for
+    ff_from_full and checkpoint interchange); a float32 state as it is."""
+    if state.win_re.dtype != torch.int16:
+        return state
+    return FullState(win_re=state.win_re.to(torch.float32) * in_scale,
+                     win_im=state.win_im.to(torch.float32) * in_scale,
+                     planes=state.planes)
+
+
+def quantize_full_state(state: FullState, in_scale: float) -> FullState:
+    """The window planes on the int16 wire format (kernel B1's int16
+    ingest): ``clip(round(w / in_scale))``; the state planes stay float32.
+    A window that came from dequantized int16 input gets its exact wire
+    values back."""
+    def q(w):
+        return torch.clamp(torch.round(w / in_scale), -32768,
+                           32767).to(torch.int16)
+
+    return FullState(win_re=q(state.win_re), win_im=q(state.win_im),
+                     planes=state.planes)
+
+
+def _kernel_kwargs(cfg: DemodConfig, mixed, in_scale, pack_out,
+                   soft_i8_scale, debug_ports):
     if cfg.sps <= 1:
         raise ValueError("full kernel supports sps > 1; use models.blockpsk "
                          "for the sps=1 passthrough")
-    if cfg.matched_filter != "none":
-        raise ValueError(_MF_LATER)
     return dict(sps=cfg.sps, num_avg=cfg.num_avg, phase_avg=cfg.phase_avg,
                 m=cfg.constellation_size, diff=cfg.differential,
-                timing_interp=cfg.timing_interp, pack_out=pack_out,
+                mf_taps=_static_taps(cfg), timing_interp=cfg.timing_interp,
+                mixed=mixed, in_scale=in_scale, pack_out=pack_out,
                 soft_i8_scale=soft_i8_scale, debug_ports=debug_ports)
 
 
 def demod_block_full(cfg: DemodConfig, state: FullState,
                      x_re: torch.Tensor, x_im: torch.Tensor, *,
+                     mixed: bool = False, in_scale: float = 1.0,
                      pack_out: bool | None = None,
                      soft_i8_scale: float | None = None,
                      debug_ports: bool = True):
     """One steady-state block through kernel B1.
 
-    x_re/x_im: (T, C) float32 time-major planes, T = S * sps, with
-    T >= (num_avg-1)*sps.  Returns (new FullState, FullOutputs); the new
-    window planes are views of the block's last rows.
+    x_re/x_im: (T, C) time-major planes of raw input, T = S * sps, with
+    T >= window_rows(cfg): float32, or int16 (the wire format, dequantized
+    as ``i16 * in_scale`` in the kernel) with an int16-window state
+    (:func:`quantize_full_state`).  A matched filter runs inside the kernel.
+    ``mixed`` reads each channel's M and differential flag from the carry
+    (full_from_ff(..., mixed_params=...)); cfg's are then ignored.  Returns
+    (new FullState, FullOutputs); the new window planes are views of the
+    block's last rows.
     """
-    kw = _kernel_kwargs(cfg, pack_out, soft_i8_scale, debug_ports)
-    keep = (cfg.num_avg - 1) * cfg.sps
+    kw = _kernel_kwargs(cfg, mixed, in_scale, pack_out, soft_i8_scale,
+                        debug_ports)
+    keep = window_rows(cfg)
     if x_re.shape[0] < keep:
         raise ValueError(
-            f"block must be >= (num_avg-1)*sps = {keep} samples, got "
-            f"{x_re.shape[0]}; pad the final block (see "
+            f"block must be >= (num_avg-1)*sps + mf_ntaps-1 = {keep} "
+            f"samples, got {x_re.shape[0]}; pad the final block (see "
             f"FullKernelBatchEngine.flush)")
     soft_re, soft_im, phase, bits, idx, planes = demod_kernel.demod_full_tm(
         state.win_re, state.win_im, x_re, x_im, state.planes, **kw)
@@ -180,23 +258,28 @@ def demod_block_full(cfg: DemodConfig, state: FullState,
 
 def demod_block_full_rolling(cfg: DemodConfig, planes: torch.Tensor,
                              prev_re: torch.Tensor, prev_im: torch.Tensor,
-                             x_re: torch.Tensor, x_im: torch.Tensor, *,
-                             pack_out: bool | None = None,
-                             soft_i8_scale: float | None = None,
-                             debug_ports: bool = True):
+                             x_re: torch.Tensor, x_im: torch.Tensor,
+                             **kwargs):
     """Steady-state block with the window taken from the previous block's
-    planes (their last ``(num_avg-1)*sps`` rows, a view).  Returns
-    ``(planes', FullOutputs)``."""
-    keep = (cfg.num_avg - 1) * cfg.sps
+    planes (their last ``window_rows(cfg)`` rows, a view); keyword
+    arguments as :func:`demod_block_full`.  Returns ``(planes',
+    FullOutputs)``."""
+    keep = window_rows(cfg)
     if prev_re.shape[0] < keep:
         raise ValueError(f"prev planes must hold >= {keep} rows")
     state = FullState(win_re=prev_re[prev_re.shape[0] - keep:],
                       win_im=prev_im[prev_im.shape[0] - keep:], planes=planes)
-    new_state, out = demod_block_full(cfg, state, x_re, x_im,
-                                      pack_out=pack_out,
-                                      soft_i8_scale=soft_i8_scale,
-                                      debug_ports=debug_ports)
+    new_state, out = demod_block_full(cfg, state, x_re, x_im, **kwargs)
     return new_state.planes, out
+
+
+def _static_taps(cfg: DemodConfig):
+    """Matched-filter taps as a hashable tuple of floats (None when
+    disabled)."""
+    from ..ops.matched_filter import filter_taps
+
+    taps = filter_taps(cfg)
+    return None if taps is None else tuple(float(t) for t in taps)
 
 
 def to_demod_outputs(cfg: DemodConfig, out: FullOutputs,

@@ -9,15 +9,22 @@ Three pieces, as for every kernel of the port:
   wrapper call launches two kernels: stage A (timing and the raw phase,
   one block per group of channels, kernel B5's block loop) and
   stage B (trend, unwrap scan, FIR, derotation, slicing, carry; one block
-  per group of channels walking the block in chunks of symbols).
-  :func:`launch_plan` sizes both in Python.
+  per group of channels walking the block in chunks of symbols); with a
+  matched filter a third, stage 0, filters the raw rows into scratch
+  first.  :func:`launch_plan` sizes them in Python.
 * :func:`demod_full_tm_ref`: the same function in plain PyTorch, on any
   device.  It follows the kernel's stages (9-tap trend on every symbol,
   prefix unwrap, endpoint FIR), not blockpsk's strided unwrap.
 * :func:`demod_full_tm`: the wrapper.  A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernels, and a failed build, load or
   launch raises.  ``demod_full_tm.launches`` counts wrapper calls that
-  launched them.
+  launched them, ``demod_full_tm.mode_launches`` those of each mode.
+
+Every static mode of the Pallas kernel is served: int16 ingest
+(``in_scale``), ``timing_interp``, an in-kernel matched filter
+(``mf_taps``) and ``mixed`` per-channel modes, alone or together.  The
+TPU-only knobs (``s_tile``, ``double_buffer``, ``win_offset``,
+``interpret``) have no counterpart.
 
 The carry plane keeps the Pallas layout (:func:`state_rows`), so
 ``models/full.full_from_ff`` and the tests compare planes directly.  One
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import shutil
 from typing import NamedTuple
@@ -60,14 +68,19 @@ TIMING_STAGE_BYTES = 80 * 1024  # ... bytes a staged chunk, at most
 TIMING_MAX_SMEM = 232448       # ... shared memory a block (an H100's)
 TRACK_GROUP = 8                # stage B: channels per block
 TRACK_MAX_CHUNK = 64           # stage B: symbols per chunk
+FIR_CHANNELS = 32              # stage 0 (matched filter): channels a block
+FIR_ROWS = 64                  # ... filtered rows a block
 TREND_HIST = UNWRAP_TREND_LEN - 1
 
 
 def state_rows(phase_avg: int, k: int = UNWRAP_TREND_LEN) -> int:
     """Rows of the carry plane: u_hist | c_re hist | c_im hist | misc(8),
     padded up to a multiple of 8 (the Pallas layout, kept for parity).
-    misc = [ang_prev, unwrap_acc, last_any_re, last_any_im, 4 rows passed
-    through unchanged]."""
+    misc = [ang_prev, unwrap_acc, last_any_re, last_any_im, interp_re,
+    interp_im, mixed_m, mixed_diff]: rows 4-5 take the block's last sample
+    under timing_interp (within a call only, as in the Pallas kernel),
+    rows 6-7 hold a mixed bank's per-channel M and differential flag
+    (written by models/full.full_from_ff, carried through)."""
     raw = (phase_avg - 1) + 2 * (k - 1) + 8
     return -(-raw // 8) * 8
 
@@ -78,39 +91,44 @@ class TimingPlan(NamedTuple):
     of symbols.  The kernels check it (``timing_plan_error``)."""
     group: int                  # channels a block
     chunk: int                  # symbols a staged chunk (double-buffered)
-    vec: int                    # bytes a staging copy moves: 16, 8 or 4
+    vec: int                    # bytes a staging copy moves: 16, 8, 4, 2
     smem: int                   # dynamic shared memory a block, bytes
     grid: int                   # blocks
     threads: int                # threads a block
 
 
 @functools.lru_cache(maxsize=256)
-def timing_plan(channels: int, sps: int, align: int = 16) -> TimingPlan:
+def timing_plan(channels: int, sps: int, align: int = 16, esize: int = 4,
+                interp: bool = False) -> TimingPlan:
     """Plan of the timing loops for ``channels`` channels at ``sps``, the
-    planes' addresses multiples of ``align`` bytes.  The group is 8
-    channels (one 32-byte sector of each row) unless one staged symbol
-    would not fit TIMING_STAGE_BYTES, then 4, 2, 1; the chunk as many
-    symbols (up to TIMING_MAX_CHUNK; fewer chunks mean fewer barriers) as
-    fit, and the block within TIMING_MAX_SMEM where it can be; copies of 16
-    bytes where the group, the row stride and the addresses allow it, else
-    8, else 4."""
-    def stage(group, chunk):          # re and im, chunk + (chunk + 1) symbols
-        return 8 * sps * group * (2 * chunk + 1)
+    planes' addresses multiples of ``align`` bytes, ``esize``-byte samples
+    (4: float32, 2: int16), one more staged leaving symbol with ``interp``.
+    The group is 8 channels (one 32-byte sector of each float32 row)
+    unless one staged symbol would not fit TIMING_STAGE_BYTES, then 4, 2,
+    1; the chunk as many symbols (up to TIMING_MAX_CHUNK; fewer chunks mean
+    fewer barriers) as fit, and the block within TIMING_MAX_SMEM where it
+    can be; copies of 16 bytes where the group, the row stride and the
+    addresses allow it, else 8, else 4, else (int16) 2."""
+    extra = int(bool(interp))
+
+    def stage(group, chunk):     # re and im, chunk + (chunk + 1 + extra)
+        return 2 * esize * sps * group * (2 * chunk + 1 + extra)
 
     group = next((g for g in (8, 4, 2) if stage(g, 1) <= TIMING_STAGE_BYTES),
                  1)
     chunk = max(1, min(TIMING_MAX_CHUNK,
-                       (TIMING_STAGE_BYTES // (8 * sps * group) - 1) // 2))
-    vec = next(v for v in (16, 8, 4)
-               if (4 * group) % v == 0 and (4 * channels) % v == 0
-               and align % v == 0)
+                       (TIMING_STAGE_BYTES // (2 * esize * sps * group)
+                        - 1 - extra) // 2))
+    vec = next(v for v in (16, 8, 4, 2)
+               if (esize * group) % v == 0 and (esize * channels) % v == 0
+               and align % v == 0 and (v >= 4 or esize == 2))
     pairs = sps * group
 
     def smem(chunk):                  # csrc/timing.cuh, timing_smem_bytes
         parts = max(1, min(chunk, TIMING_THREADS // pairs))
-        return 4 * (2 * 2 * (2 * chunk + 1) * pairs
-                    + chunk * (pairs + group) + chunk * pairs
-                    + 2 * parts * pairs + 4 * pairs)
+        staged = -(-2 * stage(group, chunk) // 16) * 16
+        return staged + 4 * (chunk * (pairs + group) + chunk * pairs
+                             + 2 * parts * pairs + 4 * pairs)
 
     while chunk > 1 and smem(chunk) > TIMING_MAX_SMEM:
         chunk -= 1
@@ -130,7 +148,7 @@ def plane_align(*planes) -> int:
 
 
 class LaunchPlan(NamedTuple):
-    """How one wrapper call launches B1's two stages (csrc/demod_full.cu).
+    """How one wrapper call launches B1's stages (csrc/demod_full.cu).
     Grids and blocks are CUDA x sizes; shared memory is bytes per block;
     scratch maps each buffer the wrapper allocates to its shape."""
     timing: TimingPlan          # stage A
@@ -140,15 +158,20 @@ class LaunchPlan(NamedTuple):
     track_block: int
     track_smem: int
     scratch: dict
+    fir_smem: int = 0           # stage 0 (matched filter only)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(C: int, S: int, sps: int, phase_avg: int,
-                align: int = 16) -> LaunchPlan:
+                align: int = 16, esize: int = 4, interp: bool = False,
+                ntaps: int = 0, mf_rows: int = 0) -> LaunchPlan:
     """Pure-Python launch plan of :func:`demod_full_tm` for C channels,
-    S symbols, the planes' addresses multiples of ``align`` bytes; the same
-    sizes as the kernels' own (``psk_demod_full_smem`` in
-    csrc/demod_full.cu)."""
+    S symbols, the planes stage A reads at addresses that are multiples of
+    ``align`` bytes, of ``esize``-byte samples, ``interp`` for
+    timing_interp; with a matched filter of ``ntaps`` taps, stage 0 and its
+    (2, mf_rows, C) float32 scratch of filtered rows (stage A then reads
+    float32).  The same sizes as the kernels' own (``psk_demod_full_smem``
+    in csrc/demod_full.cu)."""
     per_warp = 32 // TRACK_GROUP
     chunk = min(TRACK_MAX_CHUNK, -(-S // per_warp) * per_warp)
     n1 = phase_avg - 1
@@ -156,30 +179,24 @@ def launch_plan(C: int, S: int, sps: int, phase_avg: int,
               + 3 * (1 + chunk)) * TRACK_GROUP
     track_smem = 4 * (2 * buffer + n1 + 1 + chunk // per_warp * TRACK_GROUP
                       + 3 * TRACK_GROUP)
+    scratch = {"sel_re": (S, C), "sel_im": (S, C), "raw": (S, C),
+               "first_bad": (2, sps, C)}
+    fir_smem = 0
+    if ntaps:
+        scratch["filt"] = (2, mf_rows, C)
+        fir_smem = 4 * (2 * (FIR_ROWS + ntaps - 1) * FIR_CHANNELS + ntaps)
     return LaunchPlan(
-        timing=timing_plan(C, sps, align), chunk=chunk, group=TRACK_GROUP,
+        timing=timing_plan(C, sps, align, 4 if ntaps else esize, interp),
+        chunk=chunk, group=TRACK_GROUP,
         track_grid=-(-C // TRACK_GROUP), track_block=chunk * TRACK_GROUP,
-        track_smem=track_smem,
-        scratch={"sel_re": (S, C), "sel_im": (S, C), "raw": (S, C),
-                 "first_bad": (2, sps, C)})
+        track_smem=track_smem, scratch=scratch, fir_smem=fir_smem)
 
 
 def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
                 phase_avg, m, pack_out, mf_taps, timing_interp, mixed,
                 in_scale):
-    """Validate everything both versions take; raise on anything else."""
-    if mf_taps is not None:
-        raise ValueError("an in-kernel matched filter is not ported yet "
-                         "(ROADMAP: kernel B1 mode 'matched filter')")
-    if timing_interp:
-        raise ValueError("timing_interp is not ported yet (ROADMAP: kernel "
-                         "B1 mode 'timing_interp')")
-    if mixed:
-        raise ValueError("mixed per-channel modes are not ported yet "
-                         "(ROADMAP: kernel B1 mode 'mixed')")
-    if x_re.dtype == torch.int16 or in_scale != 1.0:
-        raise ValueError("int16 ingest (in_scale) is not ported yet "
-                         "(ROADMAP: kernel B1 mode 'int16 ingest')")
+    """Validate everything both versions take; raise on anything else.
+    Returns (pack_out, int16 planes, taps as a float tuple or None)."""
     k = UNWRAP_TREND_LEN
     if phase_avg < k + 1:
         raise ValueError(f"full kernel requires phase_avg >= {k + 1}")
@@ -189,18 +206,33 @@ def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
         raise ValueError("full kernel supports sps > 1")
     if m not in (2, 4, 8, 16, 32):
         raise ValueError(f"unsupported constellation size {m}")
-    planes = (win_re, win_im, x_re, x_im, state_planes)
-    if any(t.dtype != torch.float32 for t in planes):
-        raise ValueError("planes and state must be float32")
+    planes = (win_re, win_im, x_re, x_im)
+    i16 = x_re.dtype == torch.int16
+    if i16 and win_re.dtype != torch.int16:
+        raise ValueError("int16 ingest needs int16 window carry planes "
+                         "(quantize with models.full.quantize_full_state)")
+    pdt = torch.int16 if i16 else torch.float32
+    if any(t.dtype != pdt for t in planes) \
+            or state_planes.dtype != torch.float32:
+        raise ValueError("planes must be all float32 or all int16 (int16 "
+                         "ingest), and state float32")
+    if i16 and not np.isfinite(in_scale):
+        raise ValueError(f"in_scale must be finite, got {in_scale}")
+    planes += (state_planes,)
     if any(t.ndim != 2 for t in planes):
         raise ValueError("planes and state must be 2-D (rows, C)")
     if any(t.device != x_re.device for t in planes):
         raise ValueError("planes and state must be on one device")
+    taps = None
+    if mf_taps is not None:
+        taps = tuple(float(t) for t in mf_taps)
+        if not taps:
+            raise ValueError("mf_taps must hold at least one tap")
     T, C = x_re.shape
     if x_im.shape != (T, C) or T == 0 or T % sps:
         raise ValueError(f"x planes must be (S*sps, C) with S >= 1, got "
                          f"{tuple(x_re.shape)} / {tuple(x_im.shape)}")
-    wrows = (num_avg - 1) * sps
+    wrows = (num_avg - 1) * sps + (len(taps) - 1 if taps else 0)
     if win_re.shape != (wrows, C) or win_im.shape != (wrows, C):
         raise ValueError(f"win planes must be {(wrows, C)}")
     rs = state_rows(phase_avg)
@@ -212,7 +244,7 @@ def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
     elif pack_out and sps > 128:
         raise ValueError(f"pack_out requires sps <= 128 (int8 index range),"
                          f" got sps={sps}")
-    return pack_out
+    return pack_out, i16, taps
 
 
 def _alloc_outputs(S, C, device, pack_out, soft_i8_scale, debug_ports):
@@ -237,11 +269,10 @@ def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
                       in_scale: float = 1.0):
     """Plain-PyTorch version of :func:`demod_full_tm` (same arguments and
     outputs), whole-block tensor ops on any device."""
-    pack_out = _check_args(win_re, win_im, x_re, x_im, state_planes, sps=sps,
-                           num_avg=num_avg, phase_avg=phase_avg, m=m,
-                           pack_out=pack_out, mf_taps=mf_taps,
-                           timing_interp=timing_interp, mixed=mixed,
-                           in_scale=in_scale)
+    pack_out, i16, taps = _check_args(
+        win_re, win_im, x_re, x_im, state_planes, sps=sps, num_avg=num_avg,
+        phase_avg=phase_avg, m=m, pack_out=pack_out, mf_taps=mf_taps,
+        timing_interp=timing_interp, mixed=mixed, in_scale=in_scale)
     dev = x_re.device
     T, C = x_re.shape
     S = T // sps
@@ -251,22 +282,51 @@ def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     misc = n1 + 2 * k1
     st = state_planes
 
-    # C2 timing: windowed bin energies (cumsum-diff), first-max, pick.
-    re = torch.cat([win_re, x_re])
-    im = torch.cat([win_im, x_im])
+    # int16 ingest: dequantize with one float32 multiply per sample.
+    deq = ((lambda t: t.to(torch.float32) * in_scale) if i16  # noqa: E731
+           else (lambda t: t))
+    re = torch.cat([deq(win_re), deq(x_re)])
+    im = torch.cat([deq(win_im), deq(x_im)])
+    if taps is not None:
+        # Matched filter on the raw [window | block] rows, the
+        # ops/matched_filter.apply_fir convention f[r] = sum_j taps[j] *
+        # raw[r + j]; the rest runs on the (A-1)*sps + T filtered rows.
+        re, im = _fir(re, taps), _fir(im, taps)
+
+    # C2 timing: windowed bin energies (cumsum-diff).
     e = (re * re + im * im).reshape(S + num_avg - 1, sps, C)
     cs = torch.cumsum(e, dim=0)
     lower = torch.cat([torch.zeros_like(cs[:1]), cs[:S - 1]])
     w = cs[num_avg - 1:] - lower                              # (S, sps, C)
-    b = torch.argmax(w, dim=1)                                # (S, C)
-    gather = lambda v: torch.gather(                          # noqa: E731
-        v[:S * sps].reshape(S, sps, C), 1, b.unsqueeze(1)).squeeze(1)
-    sel_re, sel_im = gather(re), gather(im)
+    if timing_interp:
+        b, sel_re, sel_im = _interp_pick(re, im, w, sps)
+    else:
+        b = torch.argmax(w, dim=1)                            # first max
+        gather = lambda v: torch.gather(                      # noqa: E731
+            v[:S * sps].reshape(S, sps, C), 1, b.unsqueeze(1)).squeeze(1)
+        sel_re, sel_im = gather(re), gather(im)
 
-    # C3: M-th power phase.
-    zr, zi = sel_re, sel_im
-    for _ in range(m.bit_length() - 1):
-        zr, zi = zr * zr - zi * zi, 2.0 * zr * zi
+    # C3: M-th power phase (per channel when mixed: rows misc+6, misc+7).
+    if mixed:
+        mvec, dvec = st[misc + 6], st[misc + 7]
+        zr, zi = sel_re, sel_im
+        pick_r = pick_i = None
+        for pw in (2, 4, 8, 16, 32):
+            zr, zi = zr * zr - zi * zi, 2.0 * zr * zi
+            if pick_r is None:
+                pick_r, pick_i = zr, zi
+            else:
+                here = mvec == pw
+                pick_r = torch.where(here, zr, pick_r)
+                pick_i = torch.where(here, zi, pick_i)
+        # Anything but 2, 4, 8 and 16 takes the 32nd power, as in Pallas.
+        other = (mvec != 2) & (mvec != 4) & (mvec != 8) & (mvec != 16)
+        zr = torch.where(other, zr, pick_r)
+        zi = torch.where(other, zi, pick_i)
+    else:
+        zr, zi = sel_re, sel_im
+        for _ in range(m.bit_length() - 1):
+            zr, zi = zr * zr - zi * zi, 2.0 * zr * zi
     raw = torch.atan2(zi, zr)
 
     # Trend MA over the last k raw phases, prefix unwrap, residual.
@@ -286,31 +346,49 @@ def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     ext_u = torch.cat([st[:n1], u])
     est = ext_u.unfold(0, phase_avg, 1) @ _fir_weights(phase_avg, dev)
 
-    # C5: derotation or differential decode.
-    if diff:
-        pr = torch.cat([st[misc + 2:misc + 3], sel_re[:-1]])
-        pi_ = torch.cat([st[misc + 3:misc + 4], sel_im[:-1]])
-        pp = pr * pr + pi_ * pi_
-        inv = 1.0 / torch.where(pp == 0, torch.ones_like(pp), pp)
-        base_r = (sel_re * pr + sel_im * pi_) * inv
-        base_i = (sel_im * pr - sel_re * pi_) * inv
+    # C5: derotation or differential decode (per channel when mixed).
+    pr = torch.cat([st[misc + 2:misc + 3], sel_re[:-1]])
+    pi_ = torch.cat([st[misc + 3:misc + 4], sel_im[:-1]])
+    pp = pr * pr + pi_ * pi_
+    inv = 1.0 / torch.where(pp == 0, torch.ones_like(pp), pp)
+    dif_r = (sel_re * pr + sel_im * pi_) * inv
+    dif_i = (sel_im * pr - sel_re * pi_) * inv
+    if mixed:
+        dsel = dvec > 0.5
+        base_r = torch.where(dsel, dif_r, sel_re)
+        base_i = torch.where(dsel, dif_i, sel_im)
+        corr = torch.where(dsel, torch.zeros_like(est), -est / mvec)
+        corr = torch.where(mvec == 4, corr + 0.7853981633974483, corr)
+    elif diff:
+        base_r, base_i = dif_r, dif_i
         corr = torch.zeros_like(est)
     else:
         base_r, base_i = sel_re, sel_im
         corr = -est / float(m)
-    if m == 4:
+    if not mixed and m == 4:
         corr = corr + 0.7853981633974483
     cph_r, cph_i = torch.cos(corr), torch.sin(corr)
     s_r = base_r * cph_r - base_i * cph_i
     s_i = base_r * cph_i + base_i * cph_r
 
     # C6: slicing, packed LSB-first.
-    if m == 2:
-        code = (s_r < 0).to(torch.int32)
+    sgn_r = (s_r < 0).to(torch.int32)
+    sgn_i = (s_i < 0).to(torch.int32)
+    code4 = (sgn_r ^ sgn_i) + 2 * sgn_i
+    if mixed:
+        ss = torch.atan2(s_i, s_r) * (mvec * (0.5 / math.pi))
+        ss = torch.where(ss < -0.5, ss + mvec, ss)
+        # A NaN soft value slices to 0, as the kernel and XLA convert it.
+        codem = torch.floor(torch.nan_to_num(ss + 0.5, nan=0.0)).to(
+            torch.int32)
+        mi = mvec.to(torch.int32)
+        codem = torch.where(codem >= mi, codem - mi, codem)
+        code = torch.where(mvec == 2, sgn_r,
+                           torch.where(mvec == 4, code4, codem))
+    elif m == 2:
+        code = sgn_r
     elif m == 4:
-        sgn_r = (s_r < 0).to(torch.int32)
-        sgn_i = (s_i < 0).to(torch.int32)
-        code = (sgn_r ^ sgn_i) + 2 * sgn_i
+        code = code4
     else:
         ss = torch.atan2(s_i, s_r) * (m / TWO_PI)
         ss = torch.where(ss < -0.5, ss + float(m), ss)
@@ -330,7 +408,7 @@ def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
         o_idx.copy_(b)
 
     # Carry update with the end-of-block M*2pi re-wrap (from u_last).
-    wrapv = TWO_PI * m
+    wrapv = TWO_PI * mvec if mixed else TWO_PI * m
     u_last = u[S - 1]
     off = torch.where(u_last.abs() > wrapv,
                       torch.round(u_last / wrapv) * wrapv,
@@ -343,7 +421,75 @@ def demod_full_tm_ref(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     new[misc + 1] = acc - TWO_PI * cum[S - 1] - off
     new[misc + 2] = sel_re[S - 1]
     new[misc + 3] = sel_im[S - 1]
+    if timing_interp:                 # row S-1's last sample
+        new[misc + 4] = re[S * sps - 1]
+        new[misc + 5] = im[S * sps - 1]
     return o_sre, o_sim, o_phase, o_bits, o_idx, new
+
+
+def _interp_pick(re, im, w, sps: int):
+    """timing_interp's pick over the (S, sps, C) window sums ``w`` of the
+    [window | block] stream ``re``/``im`` (the Pallas ``_frontend_interp``
+    on the whole block): the circular centroid p of the bin energies in
+    [-0.5, sps - 0.5), bin round(p) % sps, the sample interpolated between
+    stream samples o*sps + floor(p) and the next (row o-1's last, row o+1's
+    first at the edges) with frac = p - floor(p).  Output 0 of the call has
+    no sample before it: floor(p) < 0 there takes frac 0 and its own first
+    sample.  A NaN p (a poisoned window) takes bin 0 and sample 0 with frac
+    NaN.  Returns (bin, sel_re, sel_im)."""
+    S, _, C = w.shape
+    cos_t, sin_t = _interp_table(sps, w.device)[:, :, None]
+    zr = (w * cos_t).sum(1)
+    zi = (w * sin_t).sum(1)
+    p = torch.atan2(zi, zr) * (sps / TWO_PI)
+    p = torch.where(p < -0.5, p + sps, p)
+    p = torch.where(p > sps - 0.5, p - sps, p)
+    nan = torch.isnan(p)
+    zero = torch.zeros_like(p)
+    b = torch.where(nan, zero, torch.round(p)).to(torch.int64) % sps
+    i0f = torch.floor(p)
+    frac = p - i0f
+    head = i0f[0] < 0
+    i0f[0] = torch.where(head, zero[0], i0f[0])
+    frac[0] = torch.where(head, zero[0], frac[0])
+    i0 = torch.where(nan, zero, i0f).to(torch.int64)
+    at = torch.arange(S, device=w.device).unsqueeze(1) * sps + i0
+    w1 = 1.0 - frac
+
+    def lerp(v):
+        return (torch.gather(v, 0, at) * w1
+                + torch.gather(v, 0, at + 1) * frac)
+
+    return b, lerp(re), lerp(im)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_table(sps: int, device: torch.device) -> torch.Tensor:
+    """(2, sps) float32 cos and sin of bin j's angle j * (2pi/sps) (the
+    angle rounded to float32 as the Pallas kernel forms it), on
+    ``device``."""
+    ang = np.arange(sps, dtype=np.float32) * np.float32(TWO_PI / sps)
+    tab = np.stack([np.cos(ang.astype(np.float64)),
+                    np.sin(ang.astype(np.float64))]).astype(np.float32)
+    return torch.as_tensor(tab, device=device)
+
+
+def _fir(v: torch.Tensor, taps: tuple) -> torch.Tensor:
+    """'valid' FIR down the rows of (R + L - 1, C) ``v``: f[r] = sum_j
+    taps[j] * v[r + j], summed in tap order (the kernel's order)."""
+    w_t = _taps_on(taps, v.device)
+    rows = v.shape[0] - len(taps) + 1
+    out = w_t[0] * v[:rows]
+    for j in range(1, len(taps)):
+        out = out + w_t[j] * v[j:j + rows]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_on(taps: tuple, device: torch.device) -> torch.Tensor:
+    """Matched-filter taps as a float32 tensor on ``device``, cached per
+    (taps, device)."""
+    return torch.tensor(taps, dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -371,13 +517,14 @@ def load_library():
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.psk_demod_full_tm.restype = i32
+    f32 = ctypes.c_float
     lib.psk_demod_full_tm.argtypes = (
-        [vp, vp, i64] + [vp] * 14 + [i32] * 9
-        + [ctypes.c_float] + [i32] * 5 + [vp])
+        [vp, vp, i64] + [vp] * 14 + [i32] * 9 + [f32] + [i32] * 5
+        + [i32, f32, i32, vp, i32, vp, i32, vp, vp] + [vp])
     lib.psk_demod_full_max_smem.restype = i32
     lib.psk_demod_full_max_smem.argtypes = []
     lib.psk_demod_full_smem.restype = i64
-    lib.psk_demod_full_smem.argtypes = [i32] * 5
+    lib.psk_demod_full_smem.argtypes = [i32] * 8
     return lib, log
 
 
@@ -395,22 +542,30 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
     """Run the fused steady-state demod over time-major planes.
 
     Args:
-      win_re/win_im: ((num_avg-1)*sps, C) float32 timing-window planes (the
-        previous block's last rows; a view of them is fine).
-      x_re/x_im: (S*sps, C) float32 block planes.
+      win_re/win_im: ((num_avg-1)*sps + len(mf_taps)-1, C) timing-window
+        planes (the previous block's last rows; a view of them is fine):
+        raw samples under a matched filter.
+      x_re/x_im: (S*sps, C) block planes, float32, or int16 with int16
+        window planes (the wire format, dequantized as ``i16 * in_scale``).
       state_planes: (state_rows(phase_avg), C) float32 carry.
-      m, diff: constellation size and differential decoding.
+      m, diff: constellation size and differential decoding (ignored when
+        ``mixed``: rows misc+6 and misc+7 of the carry hold them per channel).
       pack_out: int8 bits/sampleIndex planes (None: when sps <= 128).
       soft_i8_scale: emit soft planes as int8 ``clip(round(s*scale),
         -127, 127)``; bits and phase use the unquantized values.
       debug_ports: False skips the phase and sampleIndex planes (None).
-      mf_taps, timing_interp, mixed, in_scale: later modes; raise.
+      mf_taps: matched-filter taps (a sequence of floats) run on the raw
+        [window | block] rows before timing; None for no filter.
+      timing_interp: circular-centroid timing with the decision sample
+        interpolated between its two nearest samples.
+      mixed: per-channel (M, differential) from the carry's mode rows.
+      in_scale: dequantization step of int16 planes (ignored for float32).
     Returns:
       (soft_re, soft_im, phase, bits_packed, sample_index, new_state)
       with (S, C) symbol-rate planes.
 
     CPU tensors take :func:`demod_full_tm_ref`; CUDA tensors launch the
-    two stages of kernel B1 on the current stream (:func:`launch_plan`).
+    stages of kernel B1 on the current stream (:func:`launch_plan`).
     """
     kwargs = dict(sps=sps, num_avg=num_avg, phase_avg=phase_avg, m=m,
                   pack_out=pack_out, mf_taps=mf_taps,
@@ -423,18 +578,30 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
                                  debug_ports=debug_ports, **kwargs)
     if x_re.device.type != "cuda":
         raise ValueError(f"unsupported device {x_re.device}")
-    pack_out = _check_args(*planes, **kwargs)
+    pack_out, i16, taps = _check_args(*planes, **kwargs)
     if not all(t.is_contiguous() for t in planes):
         raise ValueError("planes and state must be contiguous")
     dev = x_re.device
     T, C = x_re.shape
     S = T // sps
-    plan = launch_plan(C, S, sps, phase_avg, plane_align(*planes[:4]))
+    wrows = (num_avg - 1) * sps
+    filt = None
+    if taps is not None:
+        filt = torch.empty((2, wrows + T, C), dtype=torch.float32,
+                           device=dev)
+        stage_a_in = (filt[0, :wrows], filt[1, :wrows], filt[0, wrows:],
+                      filt[1, wrows:])
+    else:
+        stage_a_in = planes[:4]
+    plan = launch_plan(C, S, sps, phase_avg, plane_align(*stage_a_in),
+                       2 if i16 else 4, bool(timing_interp),
+                       len(taps) if taps else 0, wrows + T if taps else 0)
     lib, _ = load_library()
     with torch.cuda.device(dev):
         limit = lib.psk_demod_full_max_smem()
         for stage, smem in (("stage A (timing)", plan.timing.smem),
-                            ("stage B (tracking)", plan.track_smem)):
+                            ("stage B (tracking)", plan.track_smem),
+                            ("stage 0 (matched filter)", plan.fir_smem)):
             if smem > limit:
                 raise ValueError(
                     f"sps {sps}, phase_avg {phase_avg}: {stage} needs {smem}"
@@ -448,6 +615,8 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
             (3,) + plan.scratch["raw"], dtype=torch.float32, device=dev)
         first_bad = torch.empty(plan.scratch["first_bad"], dtype=torch.int32,
                                 device=dev)
+        itab = _interp_table(sps, dev) if timing_interp else None
+        taps_t = _taps_on(taps, dev) if taps else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psk_demod_full_tm(
             _ptr(win_re), _ptr(win_im), win_re.shape[0], _ptr(x_re),
@@ -458,11 +627,23 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
             phase_avg, m, int(bool(diff)), int(pack_out),
             int(soft_i8_scale is not None),
             float(soft_i8_scale or 0.0), state_planes.shape[0],
-            *plan.timing[:3], plan.chunk, ctypes.c_void_p(stream))
+            *plan.timing[:3], plan.chunk, int(i16), float(in_scale),
+            int(bool(timing_interp)), _ptr(itab), int(bool(mixed)),
+            _ptr(taps_t), len(taps) if taps else 0,
+            _ptr(None if filt is None else filt[0]),
+            _ptr(None if filt is None else filt[1]),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")
     demod_full_tm.launches += 1
+    for mode, on in (("int16", i16), ("timing_interp", timing_interp),
+                     ("matched_filter", taps is not None), ("mixed", mixed)):
+        if on:
+            demod_full_tm.mode_launches[mode] += 1
     return o_sre, o_sim, o_phase, o_bits, o_idx, new_state
 
 
 demod_full_tm.launches = 0
+# Of those launches, the ones in each mode (a launch can be in several).
+demod_full_tm.mode_launches = dict.fromkeys(
+    ("int16", "timing_interp", "matched_filter", "mixed"), 0)

@@ -39,6 +39,22 @@ def mth_power_phase(sample: torch.Tensor, m: int) -> torch.Tensor:
     return torch.atan2(s.imag, s.real).to(torch.float32)
 
 
+def mth_power_phase_dynamic(sample: torch.Tensor,
+                            m: torch.Tensor) -> torch.Tensor:
+    """arg(sample**m) with a per-element m in {2, 4, 8, 16, 32} (any other
+    value takes the 32nd power), by the same squarings as
+    :func:`mth_power_phase`; ``m`` broadcasts against ``sample``."""
+    s = sample * sample
+    pick = s
+    for k in (4, 8, 16):
+        s = s * s
+        pick = torch.where(m == k, s, pick)
+    s = s * s
+    known = (m == 2) | (m == 4) | (m == 8) | (m == 16)
+    pick = torch.where(known, pick, s)
+    return torch.atan2(pick.imag, pick.real).to(torch.float32)
+
+
 def block_unwrap(raw: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """Prefix unwrap of ``raw`` (last axis) against the carried ``prev``:
     each element moves by whole turns so successive differences lie in

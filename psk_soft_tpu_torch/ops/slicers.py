@@ -1,5 +1,5 @@
 """Symbol -> bit slicers for BPSK / QPSK / 8-PSK (+ 16/32-PSK extension)
-(port of ``psk_soft_tpu/ops/slicers.py:25-115, 158-196``).
+(port of ``psk_soft_tpu/ops/slicers.py:25-196``).
 
 The documented sign-based mapping of ``psk_soft.scd.xml:42-63``, bits
 LSB-first.  Each slicer returns an ``(..., 3)`` int8 tensor (``log2 M`` wide
@@ -66,6 +66,38 @@ def slice_bits(constellation_size: int, soft: torch.Tensor) -> torch.Tensor:
     if constellation_size in (8, 16, 32):
         return slice_mpsk(constellation_size, soft)
     raise ValueError(f"unsupported constellation size {constellation_size}")
+
+
+def slice_code_dynamic(m_size: torch.Tensor,
+                       soft: torch.Tensor) -> torch.Tensor:
+    """Packed symbol code with a per-element constellation size (mixed
+    banks): the BPSK, QPSK and generalized M-PSK codes computed for every
+    element and selected by ``m_size`` (which broadcasts against ``soft``);
+    the M-PSK code wraps values below -0.5 up by +m and aliases m to 0.  A
+    NaN soft value codes as 0 (XLA's and the kernel's float-to-int rule)."""
+    m = torch.broadcast_to(torch.as_tensor(m_size, device=soft.device),
+                           soft.shape)
+    code2 = (soft.real < 0).to(torch.int32)
+    si = (soft.imag < 0).to(torch.int32)
+    code4 = (code2 ^ si) + 2 * si
+    theta = torch.atan2(soft.imag, soft.real)
+    mf = m.to(torch.float32)
+    ss = theta * (mf / (2.0 * math.pi))
+    ss = torch.where(ss < -0.5, ss + mf, ss)
+    codem = torch.floor(torch.nan_to_num(ss + 0.5, nan=0.0)).to(torch.int32)
+    mi = m.to(torch.int32)
+    codem = torch.where(codem >= mi, codem - mi, codem)
+    return torch.where(m == 2, code2, torch.where(m == 4, code4, codem))
+
+
+def slice_bits_dynamic(m_size: torch.Tensor, soft: torch.Tensor,
+                       max_bits: int = 3) -> torch.Tensor:
+    """Slicer with a per-element constellation size: ``(..., max_bits)``
+    int8 planes LSB-first (3 covers banks of {2, 4, 8}; 4 or 5 with 16- or
+    32-PSK channels)."""
+    code = slice_code_dynamic(m_size, soft)
+    return torch.stack([((code >> i) & 1).to(torch.int8)
+                        for i in range(max_bits)], dim=-1)
 
 
 def bit_labels(m: int, labeling: str = "scd") -> np.ndarray:

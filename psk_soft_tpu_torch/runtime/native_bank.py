@@ -60,27 +60,36 @@ class BankStats:
 class NativePlaneBank:
     """Lockstep multichannel ring that deframes to time-major re/im planes.
 
-    Interleaved complex64 frames are already time-major across channels,
-    so the native stage is a stride-2 re/im split and a pop is two
-    contiguous memcpys.  (The int16 wire format of the JAX bank comes with
-    B1's int16 ingest mode, a later ROADMAP step.)
+    Interleaved frames are already time-major across channels, so the
+    native stage is a stride-2 re/im split and a pop is two contiguous
+    memcpys.  ``dtype`` selects the wire format: "f32" (complex64 frames)
+    or "i16" (int16 I/Q pairs, the REDHAWK dataShort wire, half the bytes;
+    it pairs with kernel B1's int16 ingest,
+    ``FullKernelBatchEngine(ingest_scale=...)``).
     """
 
-    def __init__(self, channels: int, capacity_samples: int = 1 << 20):
+    def __init__(self, channels: int, capacity_samples: int = 1 << 20,
+                 dtype: str = "f32"):
+        if dtype not in ("f32", "i16"):
+            raise ValueError(f"dtype must be 'f32' or 'i16', got {dtype!r}")
         self._lib = _load_lib()
         self.channels = int(channels)
-        self._h = self._lib.pskplane_create(self.channels,
-                                            int(capacity_samples), 4)
+        self.dtype = dtype
+        self._np_dtype = np.float32 if dtype == "f32" else np.int16
+        self._h = self._lib.pskplane_create(
+            self.channels, int(capacity_samples), 4 if dtype == "f32" else 2)
         if not self._h:
             raise ValueError("pskplane_create failed (bad args)")
 
     def push_interleaved(self, frames: np.ndarray) -> bool:
-        """Push interleaved complex64 frames ((n, C), or float32 pairs of
-        length 2*n*C).  Returns True on overflow flush."""
+        """Push interleaved frames: complex64 ((n, C)) or flat pairs of the
+        wire dtype, length 2*n*C.  Returns True on overflow flush."""
         arr = np.asarray(frames)
         if np.iscomplexobj(arr):
+            if self.dtype != "f32":
+                raise ValueError("i16 bank takes int16 I/Q pairs")
             arr = arr.astype(np.complex64, copy=False).view(np.float32)
-        arr = np.ascontiguousarray(arr, np.float32).ravel()
+        arr = np.ascontiguousarray(arr, self._np_dtype).ravel()
         if arr.size % (2 * self.channels):
             raise ValueError(
                 f"push must be whole frames of {self.channels} channels")
@@ -92,14 +101,14 @@ class NativePlaneBank:
         return bool(rc)
 
     def pop_planes(self, n: int, timeout: Optional[float] = None):
-        """Blocking pop of ``(re, im, flushed)`` with (n, C) float32 plane
-        arrays.  None on timeout."""
+        """Blocking pop of ``(re, im, flushed)`` with (n, C) plane arrays of
+        the wire dtype.  None on timeout."""
         timeout_ms = -1 if timeout is None else max(0, int(timeout * 1000))
         avail = self._lib.pskplane_available(self._h, int(n), timeout_ms)
         if avail < n:
             return None
-        re = np.empty((n, self.channels), np.float32)
-        im = np.empty((n, self.channels), np.float32)
+        re = np.empty((n, self.channels), self._np_dtype)
+        im = np.empty((n, self.channels), self._np_dtype)
         flushed = ctypes.c_int32()
         rc = self._lib.pskplane_pop_planes(
             self._h, re.ctypes.data_as(ctypes.c_void_p),

@@ -12,6 +12,9 @@ change, parent) on one card.  Per shape it prints one JSON line with
 
 * ``event_ms``: five readings, each the CUDA-event time of 20 back-to-back
   wrapper calls divided by 20 (host work included where it is the longer);
+* ``host_ms``: five readings, each the host clock's time to make 20
+  back-to-back wrapper calls onto an idle card divided by 20 (the host's
+  cost of a call: arguments, plan, allocations, launches);
 * ``device_ms``: three readings, each the device time of the kernels named
   in the line (torch.profiler, one pass over 10 calls), by kernel;
 * the card's name and power limit (``nvidia-smi``).
@@ -40,6 +43,7 @@ import functools
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 C, S, SPS, NUM_AVG, PHASE_AVG = 1024, 512, 8, 100, 50
@@ -57,6 +61,18 @@ def event_ms(torch, fn, args_list, iters: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_ms(torch, fn, args_list, iters: int = 20) -> float:
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / iters
 
 
 def device_ms(torch, fn, args_list, names, iters: int = 10) -> dict:
@@ -118,7 +134,8 @@ def main() -> int:
 
     def report(kernel, shape, fn, args_list, names):
         cases.append((kernel, shape, fn, args_list, names,
-                      [event_ms(torch, fn, args_list) for _ in range(5)]))
+                      [event_ms(torch, fn, args_list) for _ in range(5)],
+                      [host_ms(torch, fn, args_list) for _ in range(5)]))
 
     # B1 and B5: four distinct blocks, each with the block before as its
     # carry window.
@@ -173,11 +190,12 @@ def main() -> int:
                [()], {"B4": ("viterbi_traceback", "viterbi_segments",
                              "viterbi_resolve")})
 
-    for kernel, shape, fn, args_list, names, ev in cases:
+    for kernel, shape, fn, args_list, names, ev, host in cases:
         dv = [device_ms(torch, fn, args_list, names) for _ in range(3)]
         print(json.dumps({"label": args.label, "root": str(args.root),
                           "kernel": kernel, **shape, "event_ms": ev,
-                          "device_ms": dv, "card": card}), flush=True)
+                          "host_ms": host, "device_ms": dv, "card": card}),
+              flush=True)
     return 0
 
 

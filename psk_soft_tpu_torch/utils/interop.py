@@ -1,10 +1,11 @@
 """State carried between the JAX package and the port.
 
-The demod has no learned weights; what crosses over is configuration and
-carries.  Everything goes through numpy and plain dataclass fields, so
-neither package imports the other: the tests read the JAX NamedTuples into
-numpy dicts (and the JAX dataclasses through ``dataclasses.asdict``) and
-hand them here.  complex64 stays complex64.
+The demod has no learned weights; what crosses over is configuration,
+carries and a mixed bank's per-channel modes.  Everything goes through
+numpy and plain dataclass fields, so neither package imports the other:
+the tests read the JAX NamedTuples into numpy dicts (and the JAX
+dataclasses through ``dataclasses.asdict``) and hand them here.  complex64
+stays complex64.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..models.chain import (ChainState, FrontChainState, FrontState,
                             SeamTailState)
 from ..models.full import FullState
 from ..models.fused import FusedState
+from ..models.mixed import MixedParams
 from ..ops.agc import AgcConfig, AgcState
 from ..ops.crc import CrcSpec
 from ..ops.fec import ConvCode
@@ -57,6 +59,12 @@ def full_state_from_numpy(arrays: Mapping, device) -> FullState:
 def fused_state_from_numpy(arrays: Mapping, device) -> FusedState:
     """FusedState on ``device`` from a mapping of its fields."""
     return _from_numpy(FusedState, arrays, device)
+
+
+def mixed_params_from_numpy(m, diff, device) -> MixedParams:
+    """A mixed bank's per-channel modes on ``device`` from the JAX
+    MixedParams' fields as numpy ((C,) M and (C,) differential flags)."""
+    return MixedParams.make(np.asarray(m), np.asarray(diff), device)
 
 
 def fused_state_to_numpy(state: FusedState) -> dict:

@@ -234,8 +234,9 @@ def test_pre_r5_flat_format_loads(tmp_path):
 
 def test_unported_classes_raise(tmp_path):
     """A JAX checkpoint of a class not ported yet raises, naming its
-    ROADMAP step; a JAX int16-window FullState loads as int16 and the
-    engine refuses it (int16 ingest is not ported)."""
+    ROADMAP step; a JAX int16-window FullState loads as int16 and restores
+    into an int16-ingest engine, whose carry then equals the JAX one (an
+    engine without ingest_scale refuses it)."""
     from psk_soft_tpu import demod_init
     from psk_soft_tpu.ops.equalizer import EqConfig, eq_init
     from psk_soft_tpu.ops.fec import viterbi_stream_init
@@ -250,11 +251,18 @@ def test_unported_classes_raise(tmp_path):
             checkpoint.load_state(path, "cpu")
     full, _ = _jax_full()
     path = os.path.join(tmp_path, "i16.npz")
-    jckpt.save_state(path, quantize_full_state(full, 1e-4), jcfg)
+    jq = quantize_full_state(full, 1e-4)
+    jckpt.save_state(path, jq, jcfg)
     st, cfg, _ = checkpoint.load_state(path, "cpu")
     assert st.win_re.dtype == torch.int16
     eng = FullKernelBatchEngine(cfg, C, device="cpu")
-    with pytest.raises(ValueError, match="int16.*ROADMAP"):
+    with pytest.raises(ValueError, match="ingest_scale"):
         eng.restore_full_state(st)
+    wire = FullKernelBatchEngine(cfg, C, ingest_scale=1e-4, device="cpu")
+    wire.restore_full_state(st)
+    assert wire.steady
+    for f in st._fields:
+        np.testing.assert_array_equal(getattr(wire.full_state, f).numpy(),
+                                      np.asarray(getattr(jq, f)))
     with open(path, "rb") as f:
         assert f.read(2) == b"PK"                       # an .npz archive

@@ -223,24 +223,47 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(mf_taps=(1.0, 1.0)), "matched filter.*ROADMAP"),
-    (dict(timing_interp=True), "timing_interp.*ROADMAP"),
-    (dict(mixed=True), "mixed.*ROADMAP"),
-    (dict(in_scale=0.5), "int16.*ROADMAP"),
+    (dict(mf_taps=(1.0, 1.0)), None),
+    (dict(timing_interp=True), None),
+    (dict(mixed=True), None),
+    (dict(in_scale=0.5), None),
     (dict(phase_avg=9), "phase_avg"),
     (dict(num_avg=1), "num_avg"),
     (dict(sps=1), "sps"),
     (dict(m=3), "constellation"),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
+    """The wrapper refuses what the kernel does not take; every mode of
+    the Pallas kernel (match None) it takes: a matched filter (its window
+    then carries len(taps)-1 more raw rows), timing_interp, mixed modes
+    (from the carry's mode rows) and int16 planes, each run here equal to
+    the plain version."""
     kw = dict(sps=8, num_avg=50, phase_avg=20, m=4, diff=False)
     kw.update(bad)
     rows = demod_kernel.state_rows(max(kw["phase_avg"], 1))
     z = torch.zeros((64, 128))
-    win = torch.zeros(((kw["num_avg"] - 1) * kw["sps"], 128))
-    with pytest.raises(ValueError, match=match):
-        demod_kernel.demod_full_tm(win, win, z, z, torch.zeros((rows, 128)),
-                                   **kw)
+    extra = len(kw.get("mf_taps") or (1,)) - 1
+    win = torch.zeros(((kw["num_avg"] - 1) * kw["sps"] + extra, 128))
+    st = torch.zeros((rows, 128))
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            demod_kernel.demod_full_tm(win, win, z, z, st, **kw)
+        return
+    gen = torch.Generator().manual_seed(5)
+    win, z = torch.randn(win.shape, generator=gen), torch.randn(
+        z.shape, generator=gen)
+    if "in_scale" in kw:
+        win, z = (win * 1000).to(torch.int16), (z * 1000).to(torch.int16)
+    if kw.get("mixed"):
+        misc = kw["phase_avg"] - 1 + 16
+        st[misc + 6] = 8.0                      # M per channel
+        st[misc + 7, ::2] = 1.0                 # differential
+    got = demod_kernel.demod_full_tm(win, win, z, z, st, **kw)
+    ref = demod_kernel.demod_full_tm_ref(win, win, z, z, st, **kw)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert got[5].shape == (rows, 128) and bool(got[0].isfinite().all())
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -268,9 +291,14 @@ def test_full_from_ff_guards():
     cfg = DemodConfig(sps=8, num_avg=50, phase_avg=5)
     with pytest.raises(ValueError, match="phase_avg"):
         full.full_from_ff(cfg, blockpsk.ff_init(cfg, C, "cpu"))
+    # A matched filter needs the raw window (the FF carry holds filtered
+    # samples): full_from_ff takes it, with mf_ntaps-1 more rows.
     cfg = DemodConfig(sps=8, num_avg=50, phase_avg=20, matched_filter="rrc")
-    with pytest.raises(ValueError, match="matched filter.*ROADMAP"):
+    with pytest.raises(ValueError, match="raw_win"):
         full.full_from_ff(cfg, blockpsk.ff_init(cfg, C, "cpu"))
+    raw = torch.ones((C, full.window_rows(cfg)), dtype=torch.complex64)
+    st = full.full_from_ff(cfg, blockpsk.ff_init(cfg, C, "cpu"), raw_win=raw)
+    assert st.win_re.shape == (49 * 8 + 64, C) and bool(st.win_re.eq(1).all())
     cfg = DemodConfig(sps=8, num_avg=50, phase_avg=20)
     st = full.full_from_ff(cfg, blockpsk.ff_init(cfg, C, "cpu"))
     z = torch.zeros((8 * 8, C))

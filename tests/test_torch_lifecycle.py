@@ -226,10 +226,26 @@ def test_restore_full_state_from_port_and_jax():
     bad = eng.full_state._replace(win_re=eng.full_state.win_re[:-8])
     with pytest.raises(ValueError, match="config/channel mismatch"):
         again.restore_full_state(bad)
-    i16 = eng.full_state._replace(
-        win_re=eng.full_state.win_re.to(torch.int16))
-    with pytest.raises(ValueError, match="int16.*ROADMAP"):
+    # An int16 window restores into an int16-ingest engine (and only
+    # there): quantized, the carry continues like the float32 one on the
+    # dequantized planes.
+    scale = 1e-4
+    i16 = full.quantize_full_state(eng.full_state, scale)
+    with pytest.raises(ValueError, match="ingest_scale"):
         again.restore_full_state(i16)
+    wire = FullKernelBatchEngine(cfg, C, block_symbols=BLOCK,
+                                 ingest_scale=scale, device="cpu")
+    wire.restore_full_state(i16)
+    again.restore_full_state(full.dequantize_full_state(i16, scale))
+    q = np.round(np.ascontiguousarray(blocks[-1].real.T) / scale)
+    qi = np.round(np.ascontiguousarray(blocks[-1].imag.T) / scale)
+    wire.push_planes(q.astype(np.int16), qi.astype(np.int16))
+    again.push_planes((q * np.float32(scale)).astype(np.float32),
+                      (qi * np.float32(scale)).astype(np.float32))
+    w, a = wire.step(), again.step()
+    assert wire.full_state.win_re.dtype == torch.int16
+    assert torch.equal(w.bits, a.bits)
+    np.testing.assert_allclose(w.soft.numpy(), a.soft.numpy(), atol=1e-5)
 
 
 def _step_all(engines, blk):
@@ -319,13 +335,20 @@ def test_guard_excludes_depth_and_soft_i8_as_in_jax(kw):
 
 
 def test_configure_rejects_unported_configs_without_touching_state():
+    """A config the kernel does not take raises before anything changes;
+    a matched filter and timing_interp are taken now (the engine then
+    carries the filter's raw look-back); an unchanged config is a no-op."""
     eng = FullKernelBatchEngine(DemodConfig(**KW), C, block_symbols=BLOCK,
                                 device="cpu")
     before = eng.cfg
-    for change, match in ((dict(matched_filter="rrc"), "matched filter"),
-                          (dict(timing_interp=True), "timing_interp")):
-        with pytest.raises(ValueError, match=match + ".*ROADMAP"):
-            eng.configure(dataclasses.replace(before, **change))
+    with pytest.raises(ValueError, match="phase_avg"):
+        eng.configure(dataclasses.replace(before, phase_avg=5))
     assert eng.cfg == before and eng.metrics.reconfigures == 0
     eng.configure(before)                      # unchanged: a no-op
     assert eng.metrics.reconfigures == 0
+    for n, change in enumerate((dict(matched_filter="rrc"),
+                                dict(timing_interp=True)), 1):
+        eng.configure(dataclasses.replace(eng.cfg, **change))
+        assert eng.metrics.reconfigures == n
+    assert eng.cfg.matched_filter == "rrc" and eng.cfg.timing_interp
+    assert eng._raw_keep == full.window_rows(eng.cfg) == 49 * 8 + 64
