@@ -25,14 +25,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the float32 kernel on the dequantized planes), timing_interp, the
      matched filter at config 3's widths, config 3 whole on int16 planes,
      mixed at config 4's; edges C = 1000 and S in {1, 37} in config 3 and
-     mixed; NaN and +inf raw samples under the matched filter;
+     mixed; NaN and +inf raw samples under the matched filter; then stage
+     0 alone (fir_phase: matched_filter_tm, C 1000 and 1024, 1-257 taps,
+     float32 with NaN and +inf planted and int16, within 1e-5 of
+     sum|taps| * max|raw|);
   4. the engine end to end: NativePlaneBank -> FullKernelBatchEngine on
      the card -> step_packets, 1 warm-up block + 10 steady blocks + a
      flush, against the same engine on the CPU (the plain version);
   5. per-block times with CUDA events (kernel and plain version on the
      same CUDA tensors), B1's stage times from one torch.profiler pass,
-     the same for each of B1's other modes (b1_mode_times), and the
-     engine's end-to-end samples/s;
+     the same for each of B1's other modes (b1_mode_times), stage 0 alone
+     beside F.conv2d of the same planes (fir_times), and the engine's
+     end-to-end samples/s;
   6. the Viterbi kernels against their plain versions on the card, bits
      and decisions equal (torch.equal), final metrics within 1e-5 with NaN
      where the plain version has it; B2's and B3's launch plan equal to
@@ -94,8 +98,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13.  Each path's
 launch counts are set to 0 just before it runs and read just after; the
 kernels line takes B1's and B2's from phase 7, B3's and B4's from phase 13,
-B5's from phase 10, B1's int16, timing_interp, matched-filter and config-3
-launches from phase 14 and its mixed launches from phase 15.
+B5's from phase 10, B1's int16, timing_interp, matched-filter, config-3
+and stage-0 launches from phase 14 and its mixed launches from phase 15.
 
 The last two lines of standard output are a JSON object describing each
 kernel, then ``{"ok": true, "device": {...}}``.
@@ -104,6 +108,7 @@ kernel, then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -381,9 +386,11 @@ def b1_blocks(torch, case: dict, state, x_re, x_im, n_sym: int,
                                         plan.timing.group, esize, interp, 0),
                 lib.psk_demod_full_smem(1, 0, kw["phase_avg"], plan.chunk, 0,
                                         0, 0, 0),
-                lib.psk_demod_full_smem(2, 0, 0, 0, 0, 0, 0, ntaps)
-                if ntaps else 0)
-    if lib_smem != (plan.timing.smem, plan.track_smem, plan.fir_smem):
+                lib.psk_demod_full_smem(2, 0, 0, plan.fir.tile,
+                                        plan.fir.stages, x_re.element_size(),
+                                        0, ntaps) if ntaps else 0)
+    if lib_smem != (plan.timing.smem, plan.track_smem,
+                    plan.fir.smem if ntaps else 0):
         raise AssertionError(f"{case}: plan shared memory "
                              f"{(plan.timing.smem, plan.track_smem)}, "
                              f"library {lib_smem}")
@@ -1846,14 +1853,14 @@ def mixed_engine_phase(torch, dev, card) -> int:
 
     def drive(device, width):
         eng = MixedKernelBatchEngine(
-            MixedParams.make(ms[:width], diffs[:width]), cfg, width,
+            MixedParams.make(ms[:width], diffs[:width], device), cfg, width,
             block_symbols=S, device=device)
         eng.set_input_sri(SRI(stream_id="mixed", xdelta=1e-6))
         pkts = []
         for b in range(n_blocks + 1):
             if b == n_blocks // 2:
                 eng.set_params(MixedParams.make(new_m[:width],
-                                                diffs[:width]))
+                                                diffs[:width], device))
             rows = slice(b * need, (b + 1) * need)
             eng.push_planes(re[rows, :width], im[rows, :width])
             p = (eng.step_packets() if b < n_blocks
@@ -1884,6 +1891,155 @@ def mixed_engine_phase(torch, dev, card) -> int:
                     "set_params_channels_changed": int((new_m != ms).sum()),
                     "max_err_vs_cpu": err, "card": card}))
     return launches
+
+
+# The Pallas kernel's in-kernel matched filter (chunked banded matmuls).
+MF_PALLAS = "psk_soft_tpu/ops/pallas/demod_kernel.py:342"
+FIR_NTAPS = (1, 2, 9, 65, 257)  # stage 0's checks: boxcar-short to long RRC
+FIR_TOL = 1e-5                # stage 0: |diff| <= FIR_TOL * sum|taps|
+                              # * max|raw|
+
+
+def fir_taps(ntaps: int) -> np.ndarray:
+    """Stage 0's test taps: config 3's RRC at 65 taps, else seeded normal
+    ones (a sum of mixed signs)."""
+    from psk_soft_tpu_torch.ops.matched_filter import rrc_taps
+
+    if ntaps == 65:
+        return rrc_taps(SPS)
+    return np.random.default_rng(ntaps).standard_normal(ntaps).astype(
+        np.float32)
+
+
+def fir_phase(torch, dev) -> float:
+    """Phase 3, stage 0 of B1 alone (matched_filter_tm, the redesigned
+    demod_fir_kernel) against its plain version on the card: config 3's
+    4488 filtered rows at C 1000 and 1024, ntaps in FIR_NTAPS, float32
+    planes with a NaN and an +inf raw sample planted, and int16 planes
+    (i16 * in_scale).  Each plan's shared memory equals the library's own
+    count.  Holds |diff| <= FIR_TOL * sum|taps| * max|raw| on finite
+    values (the plain version rounds each product and sum apart, the
+    kernel takes one fused multiply-add a tap) and NaN and inf exactly
+    where the plain version has them.  Returns the largest absolute error
+    at C 1024 and 65 taps (config 3's RRC), by plane type (int16 or
+    not)."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+
+    lib = dk.load_library()[0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows_f = (CFG3["num_avg"] - 1 + S) * SPS
+    worst = {}
+    for n_ch in (1000, C):
+        for ntaps in FIR_NTAPS:
+            taps = fir_taps(ntaps)
+            rows = rows_f + ntaps - 1
+            for i16 in (False, True):
+                re = torch.randn((rows, n_ch), generator=gen, device=dev)
+                im = torch.randn((rows, n_ch), generator=gen, device=dev)
+                scale = 1.0
+                if i16:
+                    scale = 1.0 / 8000
+                    re = (re * 8000).round().to(torch.int16)
+                    im = (im * 8000).round().to(torch.int16)
+                else:
+                    re[rows // 2, 7] = float("nan")
+                    im[rows // 3, n_ch - 3] = float("inf")
+                plan = dk.fir_plan(n_ch, rows_f, ntaps, re.element_size(),
+                                   dk.plane_align(re, im))
+                lib_smem = lib.psk_demod_full_smem(
+                    2, 0, 0, plan.tile, plan.stages, re.element_size(), 0,
+                    ntaps)
+                if lib_smem != plan.smem:
+                    raise AssertionError(f"stage 0 plan {plan}: library "
+                                         f"shared memory {lib_smem}")
+                got = dk.matched_filter_tm(re, im, taps, in_scale=scale)
+                ref = dk.matched_filter_tm_ref(re, im, taps, in_scale=scale)
+                torch.cuda.synchronize()
+                raw_max = max(float((t.float() * scale).nan_to_num(
+                    0.0, 0.0, 0.0).abs().max()) for t in (re, im))
+                tol = FIR_TOL * float(np.abs(taps).sum()) * raw_max
+                err = max(finite_err(g, r) for g, r in zip(got, ref))
+                if err > tol:
+                    raise AssertionError(f"stage 0, C {n_ch}, {ntaps} taps, "
+                                         f"int16 {i16}: error {err} > {tol}")
+                bad = int(sum((~g.isfinite()).sum() for g in got))
+                if not i16 and not bad:
+                    raise AssertionError("stage 0: the planted NaN and inf "
+                                         "reached no output")
+                if n_ch == C and ntaps == 65:
+                    worst[i16] = err
+                log(json.dumps({"phase": "kernel_vs_plain",
+                                "kernel": "matched_filter_tm",
+                                "channels": n_ch, "rows": rows_f,
+                                "ntaps": ntaps, "int16": i16,
+                                "max_abs_err": err, "tol": tol,
+                                "nonfinite_outputs": bad,
+                                "nonfinite_where_plain": True,
+                                "plan": plan._asdict()}))
+    return worst
+
+
+def fir_times(torch, dev, card, event_ms) -> dict:
+    """Phase 5c: stage 0 alone (matched_filter_tm) at config 3's widths
+    (1024 channels, 4488 filtered rows, RRC 65 taps) over four distinct
+    blocks, float32 and int16: the wrapper by CUDA events against its plain
+    version (plain, kernel, kernel, plain), its device time (torch.profiler)
+    and, on float32 planes, F.conv2d of the stacked (2, 1, rows, C) planes
+    with the (65, 1) taps in float32 (TF32 off), the best of three event
+    readings: one PyTorch call that computes the same function, timed here
+    and used nowhere in the port.  Returns per plane type the numbers of
+    its kernels-line row."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+
+    conv2d = torch.nn.functional.conv2d
+    gen = torch.Generator(device=dev).manual_seed(17)
+    taps = fir_taps(65)
+    rows_f = (CFG3["num_avg"] - 1 + S) * SPS
+    rows = rows_f + 64
+    weight = torch.tensor(taps, device=dev).view(1, 1, 65, 1)
+    out = {}
+    for i16 in (False, True):
+        blocks = []
+        for _ in range(4):
+            planes = torch.randn((2, rows, C), generator=gen, device=dev)
+            if i16:
+                planes = (planes * 8000).round().to(torch.int16)
+            blocks.append((planes[0], planes[1], planes))
+        scale = 1.0 / 8000 if i16 else 1.0
+        k_fn = lambda a, b, _p: dk.matched_filter_tm(      # noqa: E731
+            a, b, taps, in_scale=scale)
+        r_fn = lambda a, b, _p: dk.matched_filter_tm_ref(  # noqa: E731
+            a, b, taps, in_scale=scale)
+        p1 = event_ms(r_fn, blocks)
+        k1 = event_ms(k_fn, blocks)
+        k2 = event_ms(k_fn, blocks)
+        p2 = event_ms(r_fn, blocks)
+        lib_ms = None
+        if not i16:
+            lib_ms = [event_ms(lambda a, b, p: conv2d(
+                p.view(2, 1, rows, C), weight), blocks) for _ in range(3)]
+            got = dk.matched_filter_tm(*blocks[0][:2], taps)
+            want = conv2d(blocks[0][2].view(2, 1, rows, C), weight)
+            torch.cuda.synchronize()
+            conv_err = max(float((g - w.view(rows_f, C)).abs().max())
+                           for g, w in zip(got, want))
+        nxt = itertools.cycle(blocks).__next__
+        dev_ms = kernel_device_ms(torch, lambda: k_fn(*nxt()), "demod_fir")
+        es = 2 if i16 else 4
+        nbytes = 2 * rows * C * es + 4 * 65 + 2 * rows_f * C * 4
+        ops = 4 * 65 * rows_f * C
+        out[i16] = dict(kernel_ms=[k1, k2], plain_ms=[p1, p2],
+                        device_ms=dev_ms, library_ms=lib_ms, bytes=nbytes,
+                        ops=ops)
+        log(json.dumps({"phase": "timing", "what": "matched_filter_tm "
+                        "(B1 stage 0)", "channels": C, "rows": rows_f,
+                        "ntaps": 65, "int16": i16, "kernel_ms": [k1, k2],
+                        "plain_ms": [p1, p2], "device_ms": dev_ms,
+                        "conv2d_ms": lib_ms,
+                        "conv2d_max_abs_diff": None if i16 else conv_err,
+                        "bytes": nbytes, "ops": ops, "card": card}))
+        del blocks
+    return out
 
 
 B1_MODE_NAMES = ("int16", "timing_interp", "matched_filter", "config3",
@@ -2028,6 +2184,7 @@ def main() -> int:
     # --- phase 3: B1 vs its plain version: modes, edges, poison, noise
     max_err = b1_phase(torch, dev)
     mode_err = b1_modes_phase(torch, dev)
+    fir_err = fir_phase(torch, dev)
 
     # --- phase 4: the engine end to end, card vs CPU ---
     cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
@@ -2169,6 +2326,7 @@ def main() -> int:
                         "card": card}))
 
     mode_times = b1_mode_times(torch, dev, card, event_ms)
+    stage0_times = fir_times(torch, dev, card, event_ms)
 
     for depth in (0, 1):
         eng = FullKernelBatchEngine(cfg, C, block_symbols=S,
@@ -2272,6 +2430,18 @@ def main() -> int:
                          max_abs_err=mode_err[name], ms=min(t["kernel_ms"]),
                          plain_ms=min(t["plain_ms"]), bytes=t["bytes"],
                          ops=t["ops"]))
+    # B1's stage 0 (timed alone through matched_filter_tm) launches once
+    # in each matched-filter launch of B1 on the config-3 engine's path.
+    for i16, suffix in ((False, ""), (True, ", int16")):
+        t = stage0_times[i16]
+        rows.append(dict(name=f"demod_full_tm[stage0{suffix}]",
+                         source="demod_full.cu", replaces=MF_PALLAS,
+                         launches=c3["modes"]["matched_filter"],
+                         max_abs_err=fir_err[i16],
+                         ms=min(t["kernel_ms"]), plain_ms=min(t["plain_ms"]),
+                         bytes=t["bytes"], ops=t["ops"],
+                         library_ms=(min(t["library_ms"]) if t["library_ms"]
+                                     else None)))
     # B2 runs on the chain path; B3 and B4 on the long-trellis decode.
     path_launches = {"viterbi_fused": chain["launches"]["viterbi_fused"],
                      **long_launches}
@@ -2301,7 +2471,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,12 +35,22 @@
 //
 // Design: two kernels on the caller's stream (three with a matched filter).
 //
-// Stage 0 (demod_fir_kernel, matched filter only), one block of 256
-// threads per 64 rows x 32 channels: the raw rows it needs ((64 + ntaps -
-// 1) x 32, re and im) staged in shared memory, each thread 8 consecutive
-// outputs of one channel with the 8 raw samples they need next in
-// registers, sliding one row a tap, so a tap costs one shared load per 8
-// fused multiply-adds; f[r] = sum_j taps[j] * raw[r + j] in tap order.
+// Stage 0 (demod_fir_kernel, matched filter only; also launched alone by
+// psk_matched_filter_tm), f[r] = sum_j taps[j] * raw[r + j] in tap order,
+// one fmaf a tap from 0.  A block owns a strip of 32 channels and walks a
+// run of rows in tiles of 16 * row_threads rows: each thread keeps 16
+// consecutive outputs of one channel and a window of 24 raw samples per
+// plane in registers, the taps taken 8 at a time (two broadcast float4
+// reads of shared memory) with the group loop unrolled three times, so the
+// window is a ring whose slots every fused multiply-add names at compile
+// time: 8 new samples a plane come in a group and nothing moves.  The
+// ntaps % 8 last taps read their samples from shared memory.  A tile's raw
+// rows (tile + ntaps - 1, both planes, float32 or int16 as they arrive)
+// are staged by cp.async into one of two buffers while the tile before is
+// filtered; the ntaps - 1 rows the next tile shares with this one are
+// copied across in shared memory, so a run reads its halo from L2 or HBM
+// once.  The plan (row threads, run length, copy width) is made in Python
+// (ops/cuda/demod_kernel.fir_plan) and checked here (fir_plan_error).
 //
 // Stage A (demod_timing_kernel), one block per group of channels over the
 // whole block of symbols: kernel B5's block loop (timing.cuh: the stream
@@ -91,13 +101,20 @@
 //
 // With a matched filter, stage 0 writes and stage A reads the filtered
 // planes (4 * ((A-1)*sps + T) * C bytes each way, 37 MB at config 3's 1024
-// x 512 block) and the FIR does 2 * ntaps operations a filtered sample (1.2
-// GFLOP at 65 taps); the scratch round trip, not the FIR, bounds that
-// first design.
+// x 512 block) and the FIR does 4 * ntaps operations a filtered row and
+// channel (1.2 GFLOP at 65 taps): stage 0 alone is bound about equally by
+// its bytes (raw in, filtered out: 74 MB float32, 55 MB int16) and by the
+// float32 rate of its fused multiply-adds.  Its inner loop is 93% fused
+// multiply-adds, yet on an H100 they run at about half the float32 rate
+// (about 0.038 ms for config 3's block with only the first tile staged and
+// nothing stored, against 0.018 at the full rate), and its copies (about
+// 0.031 ms alone) hide only in part under them (tools/fir_bounds.py).
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <utility>
 
 #include "timing.cuh"
 
@@ -112,9 +129,16 @@ constexpr int kSymsPerWarp = 32 / kGroup;
 constexpr int kMaxThreads = 1024;
 constexpr float kHalfInvPi = 0.15915494309189535f;   // 1 / (2 pi)
 constexpr int kFirChannels = 32;        // stage 0: channels a block
-constexpr int kFirRowThreads = 8;       // ... threads a channel
-constexpr int kFirRowsPer = 8;          // ... outputs a thread
-constexpr int kFirRows = kFirRowThreads * kFirRowsPer;   // rows a block
+constexpr int kFirRowsPer = 16;         // ... outputs a thread
+constexpr int kFirGroup = 8;            // ... taps a group
+constexpr int kFirMaxRowThreads = 8;    // ... threads a channel, at most
+constexpr int kFirMinBlocks = 2;        // ... blocks an SM holds
+// Groups a turn of the register window, and its slots a plane: the
+// fewest whole groups that hold a group's kFirRowsPer + kFirGroup - 1
+// samples.
+constexpr int kFirPhases = (kFirRowsPer + 2 * kFirGroup - 2) / kFirGroup;
+constexpr int kFirSlots = kFirPhases * kFirGroup;
+static_assert(kFirGroup % 4 == 0, "taps are read as float4s");
 
 __device__ __forceinline__ float mth_phase(float re, float im, int m) {
   float zr = re, zi = im;
@@ -191,71 +215,188 @@ __device__ __forceinline__ Lane lane_mode(const Params& p, int c) {
 
 // ---- stage 0 (matched filter) ----
 
-// Dynamic shared memory of a stage-0 block: the raw rows of re and im, and
-// the taps.
-__host__ __device__ __forceinline__ int64_t fir_smem_bytes(int ntaps) {
-  return (int64_t)sizeof(float)
-         * (2 * (kFirRows + ntaps - 1) * kFirChannels + ntaps);
+// Floats of the taps in shared memory, a whole number of float4s.
+__host__ __device__ __forceinline__ int fir_tap_floats(int ntaps) {
+  return (ntaps + 3) / 4 * 4;
 }
 
-template <class T>
-__global__ void __launch_bounds__(kFirChannels * kFirRowThreads)
-demod_fir_kernel(const __grid_constant__ psk::PlanesT<T> raw, int64_t rows_f,
-                 const float* taps, int ntaps, float* out_re,
-                 float* out_im) {
-  extern __shared__ float fsm[];
-  const int span = kFirRows + ntaps - 1;
-  float* const s_re = fsm;
-  float* const s_im = fsm + span * kFirChannels;
-  float* const s_t = s_im + span * kFirChannels;
-  const int lane = threadIdx.x % kFirChannels;
-  const int rg = threadIdx.x / kFirChannels;
-  const int c = blockIdx.y * kFirChannels + lane;
-  const int64_t r0 = (int64_t)blockIdx.x * kFirRows;
-  const int64_t rows_raw = rows_f + ntaps - 1;
-  for (int i = threadIdx.x; i < ntaps; i += blockDim.x) s_t[i] = taps[i];
-  for (int i = rg; i < span; i += kFirRowThreads) {
-    float re = 0.f, im = 0.f;
-    if (c < raw.C && r0 + i < rows_raw) raw.sample(r0 + i, c, re, im);
-    s_re[i * kFirChannels + lane] = re;
-    s_im[i * kFirChannels + lane] = im;
-  }
-  __syncthreads();
+// Dynamic shared memory of a stage-0 block: the taps, then `stages`
+// buffers of a tile's raw rows (tile + ntaps - 1 rows of 32 channels, re
+// then im) of `esize`-byte samples.
+__host__ __device__ __forceinline__ int64_t fir_smem_bytes(int ntaps,
+                                                           int tile,
+                                                           int stages,
+                                                           int esize) {
+  return 4 * (int64_t)fir_tap_floats(ntaps)
+         + (int64_t)stages * 2 * (tile + ntaps - 1) * kFirChannels * esize;
+}
 
-  const int base = rg * kFirRowsPer;
-  float ar[kFirRowsPer], ai[kFirRowsPer], wr[kFirRowsPer], wi[kFirRowsPer];
+// One group of kFirGroup taps from j0 (group g = j0 / kFirGroup, kPhase =
+// g % kFirPhases) for a thread's kFirRowsPer outputs.  Raw sample s (rows
+// from the thread's first row) lives in window slot s % kFirSlots: the
+// group's new samples s = j0 + kFirRowsPer - 1 .. + kFirGroup replace
+// samples s - kFirSlots < j0, which no later tap needs; then every output
+// takes the group's taps in order.
+template <int kPhase, class T>
+__device__ __forceinline__ void fir_group(const T* sre, const T* sim,
+                                          const float* taps, int j0,
+                                          float scale,
+                                          float (&wr)[kFirSlots],
+                                          float (&wi)[kFirSlots],
+                                          float (&ar)[kFirRowsPer],
+                                          float (&ai)[kFirRowsPer]) {
+  constexpr int kBase = kPhase * kFirGroup;
 #pragma unroll
-  for (int i = 0; i < kFirRowsPer; ++i) {
-    ar[i] = ai[i] = 0.f;
-    wr[i] = s_re[(base + i) * kFirChannels + lane];
-    wi[i] = s_im[(base + i) * kFirChannels + lane];
+  for (int k = 0; k < kFirGroup; ++k) {
+    const int s = j0 + kFirRowsPer - 1 + k;
+    wr[(kBase + kFirRowsPer - 1 + k) % kFirSlots] =
+        psk::dequant(sre[s * kFirChannels], scale);
+    wi[(kBase + kFirRowsPer - 1 + k) % kFirSlots] =
+        psk::dequant(sim[s * kFirChannels], scale);
   }
-  for (int j = 0; j < ntaps; ++j) {
-    const float t = s_t[j];
+  float tv[kFirGroup];
+#pragma unroll
+  for (int k = 0; k < kFirGroup; k += 4) {
+    const float4 t4 = *reinterpret_cast<const float4*>(taps + j0 + k);
+    tv[k] = t4.x;
+    tv[k + 1] = t4.y;
+    tv[k + 2] = t4.z;
+    tv[k + 3] = t4.w;
+  }
+#pragma unroll
+  for (int k = 0; k < kFirGroup; ++k)
 #pragma unroll
     for (int i = 0; i < kFirRowsPer; ++i) {
-      ar[i] = fmaf(t, wr[i], ar[i]);
-      ai[i] = fmaf(t, wi[i], ai[i]);
+      ar[i] = fmaf(tv[k], wr[(kBase + i + k) % kFirSlots], ar[i]);
+      ai[i] = fmaf(tv[k], wi[(kBase + i + k) % kFirSlots], ai[i]);
     }
-    if (j + 1 < ntaps) {        // slide: raw row base + 8 + j comes in
-#pragma unroll
-      for (int i = 0; i + 1 < kFirRowsPer; ++i) {
-        wr[i] = wr[i + 1];
-        wi[i] = wi[i + 1];
+}
+
+// Groups g + P, P in kP..., in order (each only where g + P < ng unless
+// kAll): one turn of the window, or what is left of the last one.
+template <bool kAll, class T, int... kP>
+__device__ __forceinline__ void fir_groups(std::integer_sequence<int, kP...>,
+                                           int g, int ng, const T* sre,
+                                           const T* sim, const float* taps,
+                                           float scale,
+                                           float (&wr)[kFirSlots],
+                                           float (&wi)[kFirSlots],
+                                           float (&ar)[kFirRowsPer],
+                                           float (&ai)[kFirRowsPer]) {
+  ((kAll || g + kP < ng
+        ? fir_group<kP>(sre, sim, taps, (g + kP) * kFirGroup, scale, wr, wi,
+                        ar, ai)
+        : void()),
+   ...);
+}
+
+// Blocks: x a run of `run_rows` filtered rows, y a strip of 32 channels;
+// 32 * row_threads threads, lane = channel; two staging buffers, one where
+// a run is one tile.  rows_f filtered rows of rows_f + ntaps - 1 raw ones.
+template <class T>
+__global__ void __launch_bounds__(kFirChannels * kFirMaxRowThreads,
+                                  kFirMinBlocks)
+demod_fir_kernel(const __grid_constant__ psk::PlanesT<T> raw, int64_t rows_f,
+                 const float* taps, int ntaps, int run_rows, int vec,
+                 float* out_re, float* out_im) {
+  extern __shared__ __align__(16) float fsm[];
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int tile = kFirRowsPer * (nt / kFirChannels);
+  const int span = tile + ntaps - 1;        // raw rows a tile reads
+  const int plane = span * kFirChannels;    // samples of one staged plane
+  float* const s_t = fsm;
+  T* const bufs = reinterpret_cast<T*>(fsm + fir_tap_floats(ntaps));
+  const int lane = tid % kFirChannels;
+  const int rg = tid / kFirChannels;
+  const int c0 = blockIdx.y * kFirChannels;
+  const int c = c0 + lane;
+  const int64_t run0 = (int64_t)blockIdx.x * run_rows;
+  const int64_t run_end = run0 + run_rows < rows_f ? run0 + run_rows : rows_f;
+  const int ntiles = (int)((run_end - run0 + tile - 1) / tile);
+  const int64_t rows_raw = rows_f + ntaps - 1;
+  // Staging: thread tid copies `vec` bytes of column q of rows tid >> lg,
+  // + rstep, ... (a row of the strip is cpr = 2^lg copies).
+  const int per = vec / (int)sizeof(T);     // channels a copy
+  const int lg = __ffs(kFirChannels / per) - 1;
+  const int q = tid & ((1 << lg) - 1);
+  const int rstep = nt >> lg;
+  const int col = c0 + q * per;
+  const bool col_ok = col < raw.C;
+
+  // Raw rows r0 + first .. + n of both planes into buffer rows first ..;
+  // rows past the stream and channels past C read as 0.
+  auto stage = [&](T* buf, int64_t r0, int first, int n) {
+    for (int ri = first + (tid >> lg); ri < first + n; ri += rstep) {
+      const int64_t r = r0 + ri;
+      const bool ok = col_ok && r < rows_raw;
+      T* const dst = buf + ri * kFirChannels + q * per;
+      psk::timing_cp_async(dst, ok ? raw.row(r, false) + col : raw.x_re, vec,
+                           ok ? vec : 0);
+      psk::timing_cp_async(dst + plane, ok ? raw.row(r, true) + col
+                                           : raw.x_re, vec, ok ? vec : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  auto buf = [&](int t) { return bufs + (t & 1) * 2 * plane; };
+
+  for (int i = tid; i < ntaps; i += nt) s_t[i] = taps[i];
+  stage(bufs, run0, 0, span);
+  for (int t = 0; t < ntiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();   // tile t staged; the readers of tile t-1 done
+    T* const cur = buf(t);
+    const int64_t r0 = run0 + (int64_t)t * tile;
+    if (t + 1 < ntiles) {
+      // Tile t+1: its new rows by cp.async, the ntaps - 1 rows it shares
+      // with tile t copied across in shared memory, 16 bytes a copy.
+      stage(buf(t + 1), r0 + tile, ntaps - 1, tile);
+      const int nv = (ntaps - 1) * kFirChannels * (int)sizeof(T) / 16;
+      const uint4* const from = reinterpret_cast<const uint4*>(
+          cur + tile * kFirChannels);
+      uint4* const to = reinterpret_cast<uint4*>(buf(t + 1));
+      const int pv = plane * (int)sizeof(T) / 16;   // uint4s a plane
+      for (int v = tid; v < nv; v += nt) {
+        to[v] = from[v];
+        to[pv + v] = from[pv + v];
       }
-      wr[kFirRowsPer - 1] = s_re[(base + kFirRowsPer + j) * kFirChannels
-                                 + lane];
-      wi[kFirRowsPer - 1] = s_im[(base + kFirRowsPer + j) * kFirChannels
-                                 + lane];
     }
-  }
-  if (c >= raw.C) return;
+
+    const int64_t row0 = r0 + rg * kFirRowsPer;
+    if (row0 >= run_end || c >= raw.C) continue;
+    const T* const sre = cur + rg * kFirRowsPer * kFirChannels + lane;
+    const T* const sim = sre + plane;
+    float ar[kFirRowsPer], ai[kFirRowsPer], wr[kFirSlots], wi[kFirSlots];
 #pragma unroll
-  for (int i = 0; i < kFirRowsPer; ++i) {
-    const int64_t r = r0 + base + i;
-    if (r < rows_f) {
-      out_re[r * raw.C + c] = ar[i];
-      out_im[r * raw.C + c] = ai[i];
+    for (int i = 0; i < kFirRowsPer; ++i) ar[i] = ai[i] = 0.f;
+#pragma unroll
+    for (int s = 0; s + 1 < kFirRowsPer; ++s) {
+      wr[s] = psk::dequant(sre[s * kFirChannels], raw.scale);
+      wi[s] = psk::dequant(sim[s * kFirChannels], raw.scale);
+    }
+    const int ng = ntaps / kFirGroup;
+    int g = 0;
+    for (; g + kFirPhases <= ng; g += kFirPhases)
+      fir_groups<true>(std::make_integer_sequence<int, kFirPhases>(), g, ng,
+                       sre, sim, s_t, raw.scale, wr, wi, ar, ai);
+    fir_groups<false>(std::make_integer_sequence<int, kFirPhases - 1>(), g,
+                      ng, sre, sim, s_t, raw.scale, wr, wi, ar, ai);
+    for (int j = ng * kFirGroup; j < ntaps; ++j) {   // the last taps
+      const float tj = s_t[j];
+#pragma unroll
+      for (int i = 0; i < kFirRowsPer; ++i) {
+        ar[i] = fmaf(tj, psk::dequant(sre[(i + j) * kFirChannels], raw.scale),
+                     ar[i]);
+        ai[i] = fmaf(tj, psk::dequant(sim[(i + j) * kFirChannels], raw.scale),
+                     ai[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFirRowsPer; ++i) {
+      if (row0 + i < run_end) {
+        out_re[(row0 + i) * raw.C + c] = ar[i];
+        out_im[(row0 + i) * raw.C + c] = ai[i];
+      }
     }
   }
 }
@@ -593,17 +734,51 @@ cudaError_t launch_timing(const Params& p, int64_t smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// 0 when (rows_per_thread, tap_group, row_threads, run_rows, stages, vec)
+// is a plan demod_fir_kernel was built for and takes for these planes
+// (ops/cuda/demod_kernel.fir_plan makes it): its own outputs a thread and
+// taps a group; 1, 2, 4 or 8 row threads; runs a whole number of tiles;
+// 2 buffers, or 1 for runs of one tile; copies of 16, 8, 4 (or, int16, 2)
+// bytes that fit a strip, the row stride and the planes' addresses.
+template <class T>
+int fir_plan_error(const psk::PlanesT<T>& raw, int64_t rows_f, int ntaps,
+                   int rows_per_thread, int tap_group, int row_threads,
+                   int run_rows, int stages, int vec) {
+  const int es = (int)sizeof(T);
+  if (rows_per_thread != kFirRowsPer || tap_group != kFirGroup
+      || rows_f < 1 || ntaps < 1 || raw.C < 1 || row_threads < 1
+      || row_threads > kFirMaxRowThreads || (row_threads & (row_threads - 1))
+      || run_rows < 1 || run_rows % (kFirRowsPer * row_threads)
+      || stages < 1 || stages > 2
+      || (stages == 1 && run_rows != kFirRowsPer * row_threads)
+      || (vec != 16 && vec != 8 && vec != 4 && vec != es)
+      || (kFirChannels * es) % vec || ((int64_t)es * raw.C) % vec
+      || (rows_f + run_rows - 1) / run_rows > INT32_MAX
+      || (raw.C + kFirChannels - 1) / kFirChannels > 65535)
+    return 1;
+  const T* ptrs[4] = {raw.win_re, raw.win_im, raw.x_re, raw.x_im};
+  for (int i = raw.win_rows ? 0 : 2; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % vec) return 1;
+  return 0;
+}
+
 template <class T>
 cudaError_t launch_fir(const psk::PlanesT<T>& raw, int64_t rows_f,
-                       const float* taps, int ntaps, float* out_re,
-                       float* out_im, cudaStream_t s) {
-  const int64_t smem = fir_smem_bytes(ntaps);
+                       const float* taps, int ntaps, int rows_per_thread,
+                       int tap_group, int row_threads, int run_rows,
+                       int stages, int vec, float* out_re, float* out_im,
+                       cudaStream_t s) {
+  if (fir_plan_error(raw, rows_f, ntaps, rows_per_thread, tap_group,
+                     row_threads, run_rows, stages, vec))
+    return cudaErrorInvalidValue;
+  const int64_t smem = fir_smem_bytes(ntaps, kFirRowsPer * row_threads,
+                                      stages, (int)sizeof(T));
   const cudaError_t e = allow_smem((const void*)demod_fir_kernel<T>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((rows_f + kFirRows - 1) / kFirRows),
+  const dim3 grid((unsigned)((rows_f + run_rows - 1) / run_rows),
                   (unsigned)((raw.C + kFirChannels - 1) / kFirChannels));
-  demod_fir_kernel<T><<<grid, kFirChannels * kFirRowThreads, smem, s>>>(
-      raw, rows_f, taps, ntaps, out_re, out_im);
+  demod_fir_kernel<T><<<grid, kFirChannels * row_threads, smem, s>>>(
+      raw, rows_f, taps, ntaps, run_rows, vec, out_re, out_im);
   return cudaGetLastError();
 }
 
@@ -612,14 +787,50 @@ cudaError_t launch_fir(const psk::PlanesT<T>& raw, int64_t rows_f,
 // Dynamic shared memory per block of stage A (stage 0: sps, its group and
 // chunk, the element size of the planes it reads, interp), stage B (stage
 // 1: phase_avg and its chunk) or the matched filter's stage 0 (stage 2:
-// its taps), so the wrapper's launch plan can be checked against it.
+// its taps, its tile rows as `chunk`, its buffers as `group`, the element
+// size of the raw planes), so the wrapper's launch plan can be checked
+// against it.
 extern "C" int64_t psk_demod_full_smem(int stage, int sps, int phase_avg,
                                        int chunk, int group, int esize,
                                        int interp, int ntaps) {
   if (stage == 0)
     return psk::timing_smem_bytes(sps, group, chunk, esize, interp);
   return stage == 1 ? track_smem_bytes(phase_avg - 1, chunk)
-                    : fir_smem_bytes(ntaps);
+                    : fir_smem_bytes(ntaps, chunk, group, esize);
+}
+
+// The matched filter alone (stage 0): (rows_raw, C) raw planes, float32 or
+// int16 (dequantized as v * in_scale), into (rows_raw - ntaps + 1, C)
+// float32 out_re and out_im, on `stream`, with the plan of
+// ops/cuda/demod_kernel.fir_plan.  Returns 0 once launched,
+// cudaErrorInvalidValue for arguments or a plan the kernel does not take,
+// or the launch's error.
+extern "C" int psk_matched_filter_tm(
+    const void* raw_re, const void* raw_im, int64_t rows_raw, int C, int i16,
+    float in_scale, const float* taps, int ntaps, float* out_re,
+    float* out_im, int rows_per_thread, int tap_group, int row_threads,
+    int run_rows, int stages, int vec, void* stream) {
+  if (ntaps < 1 || rows_raw < ntaps || !taps || !out_re || !out_im)
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows_f = rows_raw - ntaps + 1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (i16) {
+    const psk::PlanesT<int16_t> raw{
+        static_cast<const int16_t*>(raw_re),
+        static_cast<const int16_t*>(raw_im),
+        static_cast<const int16_t*>(raw_re),
+        static_cast<const int16_t*>(raw_im), 0, C, in_scale};
+    return (int)launch_fir(raw, rows_f, taps, ntaps, rows_per_thread,
+                           tap_group, row_threads, run_rows, stages, vec,
+                           out_re, out_im, s);
+  }
+  const psk::PlanesT<float> raw{static_cast<const float*>(raw_re),
+                                static_cast<const float*>(raw_im),
+                                static_cast<const float*>(raw_re),
+                                static_cast<const float*>(raw_im), 0, C};
+  return (int)launch_fir(raw, rows_f, taps, ntaps, rows_per_thread,
+                         tap_group, row_threads, run_rows, stages, vec,
+                         out_re, out_im, s);
 }
 
 // Launch on `stream`: with a matched filter (ntaps > 0) stage 0, then a
@@ -630,8 +841,10 @@ extern "C" int64_t psk_demod_full_smem(int stage, int sps, int phase_avg,
 // filt_im (((num_avg-1)*sps + S*sps, C) float32) are scratch.  The window
 // holds (num_avg-1)*sps + ntaps-1 rows (raw samples under a filter).
 // interp_tab (timing_interp) holds cos then sin of j * 2pi / sps, j < sps.
-// Returns 0 once all are launched, cudaErrorInvalidValue for arguments the
-// kernels do not take, or the first error of a launch (cudaGetLastError()).
+// fir_* is stage 0's plan (ops/cuda/demod_kernel.fir_plan), read only
+// under a filter.  Returns 0 once all are launched, cudaErrorInvalidValue
+// for arguments the kernels do not take, or the first error of a launch
+// (cudaGetLastError()).
 extern "C" int psk_demod_full_tm(
     const void* win_re, const void* win_im, int64_t win_rows,
     const void* x_re, const void* x_im, const float* state_in,
@@ -642,7 +855,9 @@ extern "C" int psk_demod_full_tm(
     float soft_scale, int state_rows, int group, int tchunk, int vec,
     int chunk, int i16, float in_scale, int interp,
     const float* interp_tab, int mixed, const float* mf_taps, int ntaps,
-    float* filt_re, float* filt_im, void* stream) {
+    float* filt_re, float* filt_im, int fir_rows_per_thread,
+    int fir_tap_group, int fir_row_threads, int fir_run_rows,
+    int fir_stages, int fir_vec, void* stream) {
   const int64_t wrows = (int64_t)(num_avg - 1) * sps;
   const int extra = ntaps > 0 ? ntaps - 1 : 0;
   const int misc = phase_avg - 1 + 2 * kTrend1;
@@ -714,8 +929,12 @@ extern "C" int psk_demod_full_tm(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
   if (ntaps) {
-    e = i16 ? launch_fir(raw_i, rows_f, mf_taps, ntaps, filt_re, filt_im, s)
-            : launch_fir(raw_f, rows_f, mf_taps, ntaps, filt_re, filt_im, s);
+    e = i16 ? launch_fir(raw_i, rows_f, mf_taps, ntaps, fir_rows_per_thread,
+                         fir_tap_group, fir_row_threads, fir_run_rows,
+                         fir_stages, fir_vec, filt_re, filt_im, s)
+            : launch_fir(raw_f, rows_f, mf_taps, ntaps, fir_rows_per_thread,
+                         fir_tap_group, fir_row_threads, fir_run_rows,
+                         fir_stages, fir_vec, filt_re, filt_im, s);
     if (e != cudaSuccess) return (int)e;
   }
   // 0x7f7f7f7f: no non-finite sample seen (above any symbol index).

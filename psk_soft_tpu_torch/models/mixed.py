@@ -36,8 +36,9 @@ class MixedParams(NamedTuple):
     diff: torch.Tensor  # (C,) bool
 
     @classmethod
-    def make(cls, m, diff, device="cpu"):
-        """From any array-likes (numpy, lists, tensors) of C modes."""
+    def make(cls, m, diff, device):
+        """From any array-likes (numpy, lists, tensors) of C modes, on
+        ``device``."""
         return cls(torch.as_tensor(np.array(m), dtype=torch.int32,
                                    device=device),
                    torch.as_tensor(np.array(diff), dtype=torch.bool,
@@ -156,5 +157,5 @@ def make_mixed_demod_fn(cfg: DemodConfig, max_bits: int = 3):
     return run
 
 
-def mixed_init(cfg: DemodConfig, channels: int, device="cpu") -> FFState:
+def mixed_init(cfg: DemodConfig, channels: int, device) -> FFState:
     return ff_init(cfg, channels, device)

@@ -11,7 +11,8 @@ Three pieces, as for every kernel of the port:
   stage B (trend, unwrap scan, FIR, derotation, slicing, carry; one block
   per group of channels walking the block in chunks of symbols); with a
   matched filter a third, stage 0, filters the raw rows into scratch
-  first.  :func:`launch_plan` sizes them in Python.
+  first.  :func:`launch_plan` sizes them in Python (stage 0 by
+  :func:`fir_plan`); :func:`matched_filter_tm` launches stage 0 alone.
 * :func:`demod_full_tm_ref`: the same function in plain PyTorch, on any
   device.  It follows the kernel's stages (9-tap trend on every symbol,
   prefix unwrap, endpoint FIR), not blockpsk's strided unwrap.
@@ -69,7 +70,13 @@ TIMING_MAX_SMEM = 232448       # ... shared memory a block (an H100's)
 TRACK_GROUP = 8                # stage B: channels per block
 TRACK_MAX_CHUNK = 64           # stage B: symbols per chunk
 FIR_CHANNELS = 32              # stage 0 (matched filter): channels a block
-FIR_ROWS = 64                  # ... filtered rows a block
+FIR_ROWS_PER_THREAD = 16       # ... outputs a thread (R)
+FIR_TAP_GROUP = 8              # ... taps a group (G)
+FIR_ROW_THREADS = (8, 4, 2, 1)  # ... threads a channel, in preference
+FIR_MAX_SMEM = TIMING_MAX_SMEM  # ... shared memory a block
+FIR_SM_SMEM = 233472           # ... shared memory an SM (an H100's)
+FIR_SMS = 132                  # ... SMs (an H100's)
+FIR_BLOCKS_PER_SM = 2          # ... blocks an SM holds (launch bounds)
 TREND_HIST = UNWRAP_TREND_LEN - 1
 
 
@@ -147,6 +154,81 @@ def plane_align(*planes) -> int:
     return align
 
 
+class FirPlan(NamedTuple):
+    """How stage 0 (the matched filter, csrc/demod_full.cu
+    ``demod_fir_kernel``) is launched: blocks of 32 channels x a run of
+    rows, walked in tiles of ``rows_per_thread * row_threads`` rows, two
+    staging buffers when a run holds more than one tile.  The kernel checks
+    it (``fir_plan_error``)."""
+    rows_per_thread: int        # outputs a thread (R)
+    tap_group: int              # taps unrolled together (G)
+    row_threads: int            # threads a channel
+    tile: int                   # filtered rows a tile
+    run_rows: int               # filtered rows a block walks
+    runs: int                   # runs a strip of 32 channels (grid x)
+    strips: int                 # strips (grid y)
+    stages: int                 # staging buffers (1: one tile a run)
+    vec: int                    # bytes a staging copy moves: 16, 8, 4, 2
+    smem: int                   # dynamic shared memory a block, bytes
+    threads: int                # threads a block
+
+
+def _fir_smem(ntaps: int, tile: int, stages: int, esize: int) -> int:
+    """csrc/demod_full.cu, fir_smem_bytes: the taps (whole float4s), then
+    ``stages`` buffers of tile + ntaps - 1 raw rows of 32 channels, re and
+    im."""
+    return (4 * (-(-ntaps // 4) * 4)
+            + stages * 2 * (tile + ntaps - 1) * FIR_CHANNELS * esize)
+
+
+@functools.lru_cache(maxsize=256)
+def fir_plan(channels: int, rows_f: int, ntaps: int, esize: int = 4,
+             align: int = 16) -> FirPlan:
+    """Plan of stage 0 for ``rows_f`` filtered rows of ``channels``
+    channels (``rows_f + ntaps - 1`` raw rows of ``esize``-byte samples,
+    4 float32 or 2 int16, at addresses that are multiples of ``align``
+    bytes).  The widest tile (8 threads a channel, 128 rows) whose two
+    staging buffers fit FIR_MAX_SMEM, else the narrowest that does; runs
+    of whole tiles, as many a strip as fill the SMs once (FIR_SMS x the
+    blocks an SM holds); one tile a run, and one buffer, where two do not
+    fit at any width.  Copies of 16 bytes where the row stride and the
+    addresses allow it, else 8, else 4, else (int16) 2.  Raises ValueError
+    where one buffer of the narrowest tile does not fit."""
+    if channels < 1 or rows_f < 1 or ntaps < 1 or esize not in (2, 4):
+        raise ValueError(f"stage 0 needs channels, rows and taps >= 1 and "
+                         f"2- or 4-byte samples, got {channels}, {rows_f}, "
+                         f"{ntaps}, {esize}")
+    vec = next(v for v in (16, 8, 4, 2)
+               if (esize * channels) % v == 0 and align % v == 0
+               and v >= esize)
+    two = [rt for rt in FIR_ROW_THREADS
+           if _fir_smem(ntaps, FIR_ROWS_PER_THREAD * rt, 2, esize)
+           <= FIR_MAX_SMEM]
+    one = [rt for rt in FIR_ROW_THREADS
+           if _fir_smem(ntaps, FIR_ROWS_PER_THREAD * rt, 1, esize)
+           <= FIR_MAX_SMEM]
+    if not one:
+        raise ValueError(
+            f"a matched filter of {ntaps} taps needs "
+            f"{_fir_smem(ntaps, FIR_ROWS_PER_THREAD, 1, esize)} bytes of "
+            f"shared memory per block, more than {FIR_MAX_SMEM}")
+    rt = (two or one)[0]
+    tile = FIR_ROWS_PER_THREAD * rt
+    strips = -(-channels // FIR_CHANNELS)
+    tiles = -(-rows_f // tile)
+    per_run = 1
+    if two:
+        held = min(FIR_BLOCKS_PER_SM,
+                   FIR_SM_SMEM // (_fir_smem(ntaps, tile, 2, esize) + 1024))
+        runs = max(1, min(tiles, FIR_SMS * held // strips))
+        per_run = -(-tiles // runs)
+    stages = 2 if per_run > 1 else 1
+    run_rows = per_run * tile
+    return FirPlan(FIR_ROWS_PER_THREAD, FIR_TAP_GROUP, rt, tile, run_rows,
+                   -(-rows_f // run_rows), strips, stages, vec,
+                   _fir_smem(ntaps, tile, stages, esize), FIR_CHANNELS * rt)
+
+
 class LaunchPlan(NamedTuple):
     """How one wrapper call launches B1's stages (csrc/demod_full.cu).
     Grids and blocks are CUDA x sizes; shared memory is bytes per block;
@@ -158,20 +240,22 @@ class LaunchPlan(NamedTuple):
     track_block: int
     track_smem: int
     scratch: dict
-    fir_smem: int = 0           # stage 0 (matched filter only)
+    fir: FirPlan | None = None  # stage 0 (matched filter only)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(C: int, S: int, sps: int, phase_avg: int,
                 align: int = 16, esize: int = 4, interp: bool = False,
-                ntaps: int = 0, mf_rows: int = 0) -> LaunchPlan:
+                ntaps: int = 0, mf_rows: int = 0,
+                raw_align: int = 16) -> LaunchPlan:
     """Pure-Python launch plan of :func:`demod_full_tm` for C channels,
     S symbols, the planes stage A reads at addresses that are multiples of
     ``align`` bytes, of ``esize``-byte samples, ``interp`` for
-    timing_interp; with a matched filter of ``ntaps`` taps, stage 0 and its
-    (2, mf_rows, C) float32 scratch of filtered rows (stage A then reads
-    float32).  The same sizes as the kernels' own (``psk_demod_full_smem``
-    in csrc/demod_full.cu)."""
+    timing_interp; with a matched filter of ``ntaps`` taps, stage 0
+    (:func:`fir_plan` over the raw planes, at addresses that are multiples
+    of ``raw_align``) and its (2, mf_rows, C) float32 scratch of filtered
+    rows (stage A then reads float32).  The same sizes as the kernels' own
+    (``psk_demod_full_smem`` in csrc/demod_full.cu)."""
     per_warp = 32 // TRACK_GROUP
     chunk = min(TRACK_MAX_CHUNK, -(-S // per_warp) * per_warp)
     n1 = phase_avg - 1
@@ -181,15 +265,15 @@ def launch_plan(C: int, S: int, sps: int, phase_avg: int,
                       + 3 * TRACK_GROUP)
     scratch = {"sel_re": (S, C), "sel_im": (S, C), "raw": (S, C),
                "first_bad": (2, sps, C)}
-    fir_smem = 0
+    fir = None
     if ntaps:
         scratch["filt"] = (2, mf_rows, C)
-        fir_smem = 4 * (2 * (FIR_ROWS + ntaps - 1) * FIR_CHANNELS + ntaps)
+        fir = fir_plan(C, mf_rows, ntaps, esize, raw_align)
     return LaunchPlan(
         timing=timing_plan(C, sps, align, 4 if ntaps else esize, interp),
         chunk=chunk, group=TRACK_GROUP,
         track_grid=-(-C // TRACK_GROUP), track_block=chunk * TRACK_GROUP,
-        track_smem=track_smem, scratch=scratch, fir_smem=fir_smem)
+        track_smem=track_smem, scratch=scratch, fir=fir)
 
 
 def _check_args(win_re, win_im, x_re, x_im, state_planes, *, sps, num_avg,
@@ -485,6 +569,90 @@ def _fir(v: torch.Tensor, taps: tuple) -> torch.Tensor:
     return out
 
 
+def _check_fir_args(raw_re, raw_im, taps, in_scale):
+    """Validate what both versions of the matched filter take; raise on
+    anything else.  Returns (taps as a float tuple, int16 planes)."""
+    taps = tuple(float(t) for t in taps)
+    if not taps:
+        raise ValueError("taps must hold at least one tap")
+    i16 = raw_re.dtype == torch.int16
+    if raw_re.dtype not in (torch.float32, torch.int16) \
+            or raw_im.dtype != raw_re.dtype:
+        raise ValueError("raw planes must be both float32 or both int16")
+    if i16 and not np.isfinite(in_scale):
+        raise ValueError(f"in_scale must be finite, got {in_scale}")
+    if raw_re.ndim != 2 or raw_im.shape != raw_re.shape \
+            or raw_re.shape[0] < len(taps) or raw_re.shape[1] < 1:
+        raise ValueError(f"raw planes must be (rows, C) alike with rows >= "
+                         f"{len(taps)} (the taps) and C >= 1, got "
+                         f"{tuple(raw_re.shape)} / {tuple(raw_im.shape)}")
+    if raw_im.device != raw_re.device:
+        raise ValueError("raw planes must be on one device")
+    return taps, i16
+
+
+def matched_filter_tm_ref(raw_re, raw_im, taps, *, in_scale: float = 1.0):
+    """Plain-PyTorch version of :func:`matched_filter_tm` (same arguments
+    and outputs) on any device: int16 dequantized with one float32
+    multiply a sample, then :func:`_fir` on each plane."""
+    taps, i16 = _check_fir_args(raw_re, raw_im, taps, in_scale)
+    if i16:
+        raw_re = raw_re.to(torch.float32) * in_scale
+        raw_im = raw_im.to(torch.float32) * in_scale
+    return _fir(raw_re, taps), _fir(raw_im, taps)
+
+
+def matched_filter_tm(raw_re, raw_im, taps, *, in_scale: float = 1.0):
+    """B1's stage 0 alone: the 'valid' FIR f[r] = sum_j taps[j] * raw[r +
+    j] down the rows of time-major planes.
+
+    Args:
+      raw_re/raw_im: (rows_raw, C) float32 planes, or int16 ones
+        dequantized as ``i16 * in_scale``; rows_raw >= len(taps).
+      taps: the filter's taps, a sequence of floats.
+      in_scale: dequantization step of int16 planes (ignored for float32).
+    Returns:
+      (filt_re, filt_im), (rows_raw - len(taps) + 1, C) float32.
+
+    CPU tensors take :func:`matched_filter_tm_ref`; CUDA tensors launch
+    ``demod_fir_kernel`` on the current stream (:func:`fir_plan`), whose
+    sums are one fused multiply-add a tap in tap order.
+    """
+    if raw_re.device.type == "cpu":
+        return matched_filter_tm_ref(raw_re, raw_im, taps, in_scale=in_scale)
+    if raw_re.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw_re.device}")
+    taps, i16 = _check_fir_args(raw_re, raw_im, taps, in_scale)
+    if not (raw_re.is_contiguous() and raw_im.is_contiguous()):
+        raise ValueError("raw planes must be contiguous")
+    dev = raw_re.device
+    rows_raw, C = raw_re.shape
+    rows_f = rows_raw - len(taps) + 1
+    plan = fir_plan(C, rows_f, len(taps), 2 if i16 else 4,
+                    plane_align(raw_re, raw_im))
+    lib, _ = load_library()
+    with torch.cuda.device(dev):
+        limit = lib.psk_demod_full_max_smem()
+        if plan.smem > limit:
+            raise ValueError(f"a matched filter of {len(taps)} taps needs "
+                             f"{plan.smem} bytes of shared memory per block, "
+                             f"more than this device's limit of {limit}")
+        out = torch.empty((2, rows_f, C), dtype=torch.float32, device=dev)
+        rc = lib.psk_matched_filter_tm(
+            _ptr(raw_re), _ptr(raw_im), rows_raw, C, int(i16),
+            float(in_scale), _ptr(_taps_on(taps, dev)), len(taps),
+            _ptr(out[0]), _ptr(out[1]), *_fir_args(plan),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"matched_filter_tm launch failed: CUDA error "
+                           f"{rc}")
+    matched_filter_tm.launches += 1
+    return out[0], out[1]
+
+
+matched_filter_tm.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _taps_on(taps: tuple, device: torch.device) -> torch.Tensor:
     """Matched-filter taps as a float32 tensor on ``device``, cached per
@@ -520,7 +688,10 @@ def load_library():
     f32 = ctypes.c_float
     lib.psk_demod_full_tm.argtypes = (
         [vp, vp, i64] + [vp] * 14 + [i32] * 9 + [f32] + [i32] * 5
-        + [i32, f32, i32, vp, i32, vp, i32, vp, vp] + [vp])
+        + [i32, f32, i32, vp, i32, vp, i32, vp, vp] + [i32] * 6 + [vp])
+    lib.psk_matched_filter_tm.restype = i32
+    lib.psk_matched_filter_tm.argtypes = (
+        [vp, vp, i64, i32, i32, f32, vp, i32, vp, vp] + [i32] * 6 + [vp])
     lib.psk_demod_full_max_smem.restype = i32
     lib.psk_demod_full_max_smem.argtypes = []
     lib.psk_demod_full_smem.restype = i64
@@ -530,6 +701,12 @@ def load_library():
 
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _fir_args(plan: FirPlan) -> tuple:
+    """The plan fields stage 0's launch takes (``fir_plan_error``)."""
+    return (plan.rows_per_thread, plan.tap_group, plan.row_threads,
+            plan.run_rows, plan.stages, plan.vec)
 
 
 def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
@@ -595,13 +772,15 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
         stage_a_in = planes[:4]
     plan = launch_plan(C, S, sps, phase_avg, plane_align(*stage_a_in),
                        2 if i16 else 4, bool(timing_interp),
-                       len(taps) if taps else 0, wrows + T if taps else 0)
+                       len(taps) if taps else 0, wrows + T if taps else 0,
+                       plane_align(*planes[:4]))
     lib, _ = load_library()
     with torch.cuda.device(dev):
         limit = lib.psk_demod_full_max_smem()
         for stage, smem in (("stage A (timing)", plan.timing.smem),
                             ("stage B (tracking)", plan.track_smem),
-                            ("stage 0 (matched filter)", plan.fir_smem)):
+                            ("stage 0 (matched filter)",
+                             plan.fir.smem if plan.fir else 0)):
             if smem > limit:
                 raise ValueError(
                     f"sps {sps}, phase_avg {phase_avg}: {stage} needs {smem}"
@@ -632,6 +811,7 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
             _ptr(taps_t), len(taps) if taps else 0,
             _ptr(None if filt is None else filt[0]),
             _ptr(None if filt is None else filt[1]),
+            *(_fir_args(plan.fir) if plan.fir else (0,) * 6),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")

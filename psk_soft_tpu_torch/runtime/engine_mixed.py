@@ -58,7 +58,7 @@ class MixedKernelBatchEngine(FullKernelBatchEngine):
     @staticmethod
     def _check_params(params, channels: int) -> MixedParams:
         p = MixedParams.make(torch.as_tensor(params.m).cpu(),
-                             torch.as_tensor(params.diff).cpu())
+                             torch.as_tensor(params.diff).cpu(), "cpu")
         if tuple(p.m.shape) != (channels,):
             raise ValueError(f"params must carry {channels} channel modes")
         if not bool(torch.isin(p.m, torch.tensor([2, 4, 8, 16, 32])).all()):

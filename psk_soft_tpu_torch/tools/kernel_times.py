@@ -29,17 +29,29 @@ and B5 are four distinct blocks used in turn, 134 MB, so reads come from
 HBM rather than L2):
 B1 ``demod_full_tm`` and B5 ``timing_frontend_tm`` at 1024 channels x 512
 symbols, sps 8, num_avg 100 (B1: QPSK, phase_avg 50, debug ports off),
-B1's stage A (timing) and stage B (tracking) apart by device time; B2
+B1's stage A (timing) and stage B (tracking) apart by device time; B1 at
+BASELINE config 3's widths (8-PSK, num_avg 50, phase_avg 40, RRC 65 taps)
+with its matched filter, on float32 planes (argmax timing) and config 3
+whole on int16 planes, stage 0 (the filter) apart; where the checkout has
+it, stage 0 alone (``matched_filter_tm``, float32 and int16) beside
+``F.conv2d`` of the same float32 planes (TF32 off), a PyTorch call that
+computes the same function; B2
 ``viterbi_fused`` at the chain shape (K7, 6144 rows x 64 steps) and K9,
 512 x 1472; B3 ``viterbi_acs`` at K7, 512 x 4096 and 8 x 4096 (one block);
 B4 ``viterbi_traceback`` at K7, 512 x 4096, K9, 256 x 1024 and K7, 32 x
 2048 (one block; the long-trellis decode of chip_smoke.py phase 13).
+
+Before any timing it prints one ``digest`` line per B1 filter-mode shape:
+the SHA-1 of every output plane's bytes (soft, phase, bits, sample index,
+carry) of one seeded block with debug ports on, so runs on two checkouts
+show whether B1's outputs are equal bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -102,6 +114,92 @@ def device_ms(torch, fn, args_list, names, iters: int = 10) -> dict:
     return out
 
 
+CFG3 = dict(sps=8, num_avg=50, constellation_size=8, phase_avg=40,
+            matched_filter="rrc", rrc_beta=0.35, rrc_span=8,
+            timing_interp=True)
+
+
+def config3_cases(torch, dev, gen, report, card, args) -> None:
+    """B1 at config 3's widths with its matched filter (float32 planes with
+    argmax timing; config 3 whole on int16 planes): a digest line each,
+    then their timing cases; stage 0 alone where the checkout has
+    ``matched_filter_tm``."""
+    import dataclasses
+
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models import blockpsk, full
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+
+    for name, ckw, i16 in (("matched_filter", dict(CFG3, timing_interp=False),
+                            False), ("config3", CFG3, True)):
+        cfg = DemodConfig(**ckw)
+        rows_w = full.window_rows(cfg)
+        raw = torch.zeros((C, rows_w), dtype=torch.complex64, device=dev)
+        planes = full.full_from_ff(cfg, blockpsk.ff_init(cfg, C, dev),
+                                   raw_win=raw).planes
+        blocks = []
+        for _ in range(4):
+            xr = 0.5 * torch.randn((rows_w + S * SPS, C), generator=gen,
+                                   device=dev)
+            xi = 0.5 * torch.randn((rows_w + S * SPS, C), generator=gen,
+                                   device=dev)
+            if i16:
+                xr = (xr * 8000).round().to(torch.int16)
+                xi = (xi * 8000).round().to(torch.int16)
+            blocks.append((xr[:rows_w], xi[:rows_w], xr[rows_w:],
+                           xi[rows_w:], planes))
+        kw = dict(sps=cfg.sps, num_avg=cfg.num_avg, phase_avg=cfg.phase_avg,
+                  m=cfg.constellation_size, diff=False,
+                  mf_taps=full._static_taps(cfg),
+                  timing_interp=cfg.timing_interp,
+                  in_scale=1.0 / 8000 if i16 else 1.0)
+        outs = dk.demod_full_tm(*blocks[0], **kw)
+        torch.cuda.synchronize()
+        sha = hashlib.sha1()
+        for t in outs:
+            sha.update(t.contiguous().cpu().numpy().tobytes())
+        print(json.dumps({"label": args.label, "root": str(args.root),
+                          "digest": sha.hexdigest(),
+                          "kernel": f"demod_full_tm[{name}]",
+                          "outputs": "soft_re, soft_im, phase, bits, "
+                                     "sample_index, new_state",
+                          "card": card}), flush=True)
+        report(f"demod_full_tm[{name}]",
+               {"channels": C, "symbols": S, "config": ckw, "int16": i16},
+               lambda *a, kw=kw: dk.demod_full_tm(*a, debug_ports=False,
+                                                  **kw),
+               blocks, {"stage_0_filter": "demod_fir",
+                        "stage_a_timing": "demod_timing",
+                        "stage_b_track": "demod_track"})
+        if hasattr(dk, "matched_filter_tm"):
+            taps = kw["mf_taps"]
+            scale = kw["in_scale"]
+            rows = rows_w + S * SPS
+            stacked = [torch.stack([torch.cat([b[0], b[2]]),
+                                    torch.cat([b[1], b[3]])])
+                       for b in blocks]
+            fir_args = [(p[0], p[1]) for p in stacked]
+            report("matched_filter_tm",
+                   {"channels": C, "rows": rows - len(taps) + 1,
+                    "ntaps": len(taps), "int16": i16},
+                   lambda a, b, taps=taps, scale=scale:
+                   dk.matched_filter_tm(a, b, taps, in_scale=scale),
+                   fir_args, {"stage_0_filter": "demod_fir"})
+            if not i16:
+                weight = torch.tensor(taps, device=dev).view(1, 1, -1, 1)
+                torch.backends.cudnn.allow_tf32 = False
+                conv = [(p.view(2, 1, rows, C),) for p in stacked]
+                ev = [event_ms(torch, lambda x: torch.nn.functional.conv2d(
+                    x, weight), conv) for _ in range(5)]
+                print(json.dumps({"label": args.label, "root": str(args.root),
+                                  "kernel": "conv2d (same function as "
+                                            "matched_filter_tm)",
+                                  "channels": C, "rows": rows - len(taps) + 1,
+                                  "ntaps": len(taps), "event_ms": ev,
+                                  "card": card}), flush=True)
+        del blocks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
@@ -149,6 +247,7 @@ def main() -> int:
     wins = [(p[0][-keep:], p[1][-keep:], c[0], c[1])
             for p, c in zip(blocks[-1:] + blocks[:-1], blocks)]
     shape = {"channels": C, "symbols": S, "sps": SPS, "num_avg": NUM_AVG}
+    config3_cases(torch, dev, gen, report, card, args)
     report("timing_frontend_tm", shape,
            lambda *a: fk.timing_frontend_tm(*a, sps=SPS, num_avg=NUM_AVG),
            wins, {"B5": "frontend"})

@@ -65,12 +65,12 @@ def _np(state):
 
 def test_mixed_params_match_jax():
     ms = np.array([2, 4, 8, 16, 32, 4])
-    p = mixed.MixedParams.make(ms, np.zeros(6, bool))
+    p = mixed.MixedParams.make(ms, np.zeros(6, bool), "cpu")
     jp = JaxMixedParams.make(ms, np.zeros(6, bool))
     np.testing.assert_array_equal(p.bits_per_symbol.numpy(),
                                   np.asarray(jp.bits_per_symbol))
     assert p.max_bits == jp.max_bits == 5
-    assert mixed.MixedParams.make([2, 4], [0, 1]).max_bits == 3
+    assert mixed.MixedParams.make([2, 4], [0, 1], "cpu").max_bits == 3
     q = interop.mixed_params_from_numpy(np.asarray(jp.m), np.asarray(jp.diff),
                                         "cpu")
     assert q.m.dtype == torch.int32 and q.diff.dtype == torch.bool
@@ -87,11 +87,11 @@ def test_mixed_pipeline_matches_jax(max_bits):
     if max_bits == 5:
         ms = ms.copy()
         ms[:2] = (32, 16)
-    p = mixed.MixedParams.make(ms, diffs)
+    p = mixed.MixedParams.make(ms, diffs, "cpu")
     jp = JaxMixedParams.make(ms, diffs)
     fn = mixed.make_mixed_demod_fn(cfg, max_bits=max_bits)
     jfn = jax_mixed_fn(jcfg, max_bits=max_bits)
-    st, jst = mixed.mixed_init(cfg, C), jax_mixed_init(jcfg, C)
+    st, jst = mixed.mixed_init(cfg, C, "cpu"), jax_mixed_init(jcfg, C)
     for blk in np.split(xs, 2, axis=1):
         st, out = fn(p, st, torch.from_numpy(blk))
         jst, jout = jfn(jp, jst, jnp.asarray(blk))
@@ -111,7 +111,7 @@ def test_mixed_pipeline_matches_jax(max_bits):
 
 def _engines(seed, n_blocks, **kw):
     ms, diffs, xs = _mixed_bank(n_blocks * BLOCK, seed=seed)
-    eng = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs),
+    eng = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs, "cpu"),
                                  DemodConfig(**KW), C, block_symbols=BLOCK,
                                  device="cpu", **kw)
     jeng = JaxMixedKernelBatchEngine(JaxMixedParams.make(ms, diffs),
@@ -178,7 +178,7 @@ def test_mixed_engine_set_params_matches_jax():
     new_d[:8] = False
     for b, blk in enumerate(blocks):
         if b == 3:
-            eng.set_params(mixed.MixedParams.make(new_m, new_d))
+            eng.set_params(mixed.MixedParams.make(new_m, new_d, "cpu"))
             jeng.set_params(JaxMixedParams.make(new_m, new_d))
             assert not eng.steady
             pc = eng._warm_state.phase_count.numpy()
@@ -216,7 +216,7 @@ def test_mixed_engine_guard_keeps_modes_and_debug_ports_off():
     rows (its M and differential flag); with debug ports off the port set
     stays {soft, bits} through warm-up, steady state and the drain."""
     ms, diffs, xs = _mixed_bank(4 * BLOCK, seed=9)
-    eng = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs),
+    eng = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs, "cpu"),
                                  DemodConfig(**KW), C, block_symbols=BLOCK,
                                  guard_nonfinite=True, device="cpu")
     blocks = [b.copy() for b in np.split(xs, 4, axis=1)]
@@ -231,7 +231,7 @@ def test_mixed_engine_guard_keeps_modes_and_debug_ports_off():
     assert not planes[:misc + 6, 5].any()
     assert planes[misc + 6, 5] == ms[5] and planes[misc + 7, 5] == diffs[5]
 
-    quiet = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs),
+    quiet = MixedKernelBatchEngine(mixed.MixedParams.make(ms, diffs, "cpu"),
                                    DemodConfig(**KW), C, block_symbols=BLOCK,
                                    debug_ports=False, device="cpu")
     seen = set()
@@ -248,11 +248,11 @@ def test_mixed_engine_guard_keeps_modes_and_debug_ports_off():
 
 def test_mixed_engine_rejects_bad_params():
     with pytest.raises(ValueError, match="channel modes"):
-        MixedKernelBatchEngine(mixed.MixedParams.make([2, 4], [0, 0]),
+        MixedKernelBatchEngine(mixed.MixedParams.make([2, 4], [0, 0], "cpu"),
                                DemodConfig(**KW), C, device="cpu")
     with pytest.raises(ValueError, match="M must be"):
         MixedKernelBatchEngine(mixed.MixedParams.make(np.full(C, 3),
-                                                      np.zeros(C)),
+                                                      np.zeros(C), "cpu"),
                                DemodConfig(**KW), C, device="cpu")
     import inspect
     params = inspect.signature(MixedKernelBatchEngine).parameters

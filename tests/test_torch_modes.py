@@ -315,9 +315,10 @@ def test_launch_plan_takes_the_modes():
     plan = demod_kernel.launch_plan(1024, 512, 8, 40, 16, 2, True, 65,
                                     49 * 8 + 512 * 8)
     assert plan.scratch["filt"] == (2, 49 * 8 + 512 * 8, 1024)
-    assert plan.fir_smem == 4 * (2 * (64 + 64) * 32 + 65)
+    assert plan.fir == demod_kernel.fir_plan(1024, 49 * 8 + 512 * 8, 65, 2)
+    assert plan.fir.smem == 4 * 68 + 2 * 2 * (128 + 64) * 32 * 2
     assert plan.timing == demod_kernel.timing_plan(1024, 8, 16, 4, True)
-    assert demod_kernel.launch_plan(1024, 512, 8, 40).fir_smem == 0
+    assert demod_kernel.launch_plan(1024, 512, 8, 40).fir is None
 
 
 def test_ops_match_jax():
