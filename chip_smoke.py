@@ -94,8 +94,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      CPU for the first 128 channels; its samples/s and a profiled pass;
  15. MixedKernelBatchEngine at config 4's widths at 1024 channels (M and
      differential per channel), set_params mid-stream, against a
-     128-channel CPU run.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13.  Each path's
+     128-channel CPU run;
+ 16. the reference's golden vectors on the card: the port's gen_psk through
+     make_demod_fn (the exact scan) for M in {2, 4, 8}, differential and
+     not: 901 valid outputs, soft within 1e-3 of the transmitted symbols,
+     bits exact where the rotation is known; the port's demod_reference
+     on decisive signals against the card's scan (sample index equal, soft
+     and phase within 2e-3);
+ 17. BatchEngine at 1024 x 512 (QPSK, num_avg 100, phase_avg 50): "ff" for
+     1 + 10 blocks and a flush with guard_nonfinite, NaN and +inf planted
+     in two channels; "exact" for 1 + 3 blocks; each against a 128-channel
+     CPU run (bits, sample index and channel_resyncs equal, soft 3e-3,
+     phase 2e-3); the exact scan's ms per block and the ff engine's
+     samples/s at depth 0 and 1;
+ 18. StreamEngine, both pipelines, one stream of 20 blocks with a rate
+     change, two configures, a queue flush, a real-mode packet and EOS
+     with a partial block; StreamRegistry with 64 interleaved streams;
+     packets, SRIs, timestamps, metrics and port_stats equal to a CPU run;
+     one stream's samples/s;
+ 19. GroupEngine over BASELINE configs 1, 2 and 3 (1024 channels),
+     step_all_packets, a partition-preserving configure, a splitting one
+     that raises, flush_all_packets, against a 128-channel CPU run.
+Phases 16-19 run no kernel: the exact scan and the feed-forward pipeline
+are plain PyTorch, as they are plain XLA in the JAX package.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-19.  Each path's
 launch counts are set to 0 just before it runs and read just after; the
 kernels line takes B1's and B2's from phase 7, B3's and B4's from phase 13,
 B5's from phase 10, B1's int16, timing_interp, matched-filter, config-3
@@ -1239,34 +1261,51 @@ def fused_phase(torch, dev, card: str, frames, profile) -> int:
     return launches
 
 
-def compare_packets(gpu_pkts, cpu_pkts, what: str) -> float:
-    """Card packets (their first CPU_C channels) against a CPU run's:
-    timestamps, EOS, SRI and shapes equal, bits and sample index equal,
-    soft and phase within SOFT_TOL.  Returns the largest soft/phase
-    error."""
-    from psk_soft_tpu_torch.runtime.streams import (PORT_BITS,
+def compare_service(gpu, cpu, what: str, rows=None) -> dict:
+    """Packet lists of an engine, card against CPU: the same packets
+    (None where None), ports, SRIs, timestamps, EOS and sriChanged flags;
+    bits and sample index equal; soft within SOFT_TOL and phase within
+    PHASE_TOL over the finite values, with NaN and inf at the same places.
+    ``rows`` keeps the first rows of each card packet's (C, n) data, for a
+    CPU run of fewer channels.  Returns the largest errors."""
+    from psk_soft_tpu_torch.runtime.streams import (PORT_BITS, PORT_PHASE,
                                                     PORT_SAMPLE_INDEX)
 
-    worst = 0.0
-    if len(gpu_pkts) != len(cpu_pkts):
-        raise AssertionError(f"{what}: {len(gpu_pkts)} vs "
-                             f"{len(cpu_pkts)} packet sets")
-    for a, b in zip(gpu_pkts, cpu_pkts):
-        if set(a) != set(b):
-            raise AssertionError(f"{what}: ports differ")
-        for port in a:
+    worst = {"soft": 0.0, "phase": 0.0}
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{what}: {len(gpu)} vs {len(cpu)} outputs")
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if (a is None) != (b is None) or (a is not None
+                                          and set(a) != set(b)):
+            raise AssertionError(f"{what} #{i}: ports differ")
+        for port in a or {}:
             pa, pb = a[port], b[port]
-            da = pa.data[:CPU_C] if pa.data.ndim == 2 else pa.data
-            if (pa.t, pa.eos, pa.sri) != (pb.t, pb.eos, pb.sri) \
-                    or da.shape != pb.data.shape:
-                raise AssertionError(f"{what} {port}: metadata differs")
+            da = pa.data
+            if rows is not None and da.ndim == 2:
+                da = da[:rows]
+            if ((pa.t, pa.eos, pa.sri, pa.sri_changed)
+                    != (pb.t, pb.eos, pb.sri, pb.sri_changed)
+                    or da.shape != pb.data.shape
+                    or da.dtype != pb.data.dtype):
+                raise AssertionError(f"{what} #{i} {port}: metadata differs")
             if port in (PORT_BITS, PORT_SAMPLE_INDEX):
                 if not np.array_equal(da, pb.data):
-                    raise AssertionError(f"{what} {port}: differs")
-            elif da.size:
-                worst = max(worst, float(np.abs(da - pb.data).max()))
-    if worst > SOFT_TOL:
-        raise AssertionError(f"{what}: soft/phase error {worst}")
+                    raise AssertionError(f"{what} #{i} {port}: differs at "
+                                         f"{int((da != pb.data).sum())}")
+                continue
+            fa, fb = np.isfinite(da), np.isfinite(pb.data)
+            if not (np.array_equal(fa, fb) and np.array_equal(
+                    np.isnan(da), np.isnan(pb.data))
+                    and np.array_equal(da[~fa & ~np.isnan(da)],
+                                       pb.data[~fb & ~np.isnan(pb.data)])):
+                raise AssertionError(f"{what} #{i} {port}: non-finite "
+                                     f"values differ")
+            if fa.any():
+                key = "phase" if port == PORT_PHASE else "soft"
+                worst[key] = max(worst[key], float(
+                    np.abs(da[fa] - pb.data[fa]).max()))
+    if worst["soft"] > SOFT_TOL or worst["phase"] > PHASE_TOL:
+        raise AssertionError(f"{what}: errors {worst}")
     return worst
 
 
@@ -1322,7 +1361,8 @@ def lifecycle_phases(torch, dev, card: str, frames) -> int:
     if not gpu.steady or gpu.metrics.reconfigures != 1 or launches < 6:
         raise AssertionError(f"configure: steady {gpu.steady}, launches "
                              f"{launches}")
-    err = compare_packets(gpu_pkts, cpu_pkts, "configure")
+    err = max(compare_service(gpu_pkts, cpu_pkts, "configure",
+                              rows=CPU_C).values())
     log(json.dumps({"phase": "lifecycle", "what": "configure num_avg "
                     "100->80, phase_avg 50->40 after 4 blocks",
                     "channels": C, "cpu_channels": CPU_C,
@@ -1722,7 +1762,7 @@ def config3_engine_phase(torch, dev, card, profile) -> dict:
     config 3 (8-PSK, RRC, timing_interp) with ingest_scale, at 1024
     channels: 1 warm-up block, STEADY_BLOCKS steady blocks and a flush on
     the card against the same engine on the CPU for the first CPU_C
-    channels (compare_packets), the window carry int16, every symbol
+    channels (compare_service), the window carry int16, every symbol
     emitted (the flush masks the filter's last ceil(64/8) symbols) and
     near an 8-PSK point; then its samples/s and one profiled pass (the
     host-to-device copies of int16 planes).  Returns B1's launches on the
@@ -1773,7 +1813,8 @@ def config3_engine_phase(torch, dev, card, profile) -> dict:
         raise AssertionError(f"config 3: launches {launches}, {modes}")
     if gpu.full_state.win_re.dtype != torch.int16:
         raise AssertionError("config 3: the window carry left int16")
-    err = compare_packets(gpu_pkts, cpu_pkts, "config 3")
+    err = max(compare_service(gpu_pkts, cpu_pkts, "config 3",
+                              rows=CPU_C).values())
     soft = np.concatenate([p[PORT_SOFT].data for p in gpu_pkts], axis=1)
     expect = n_blocks * S - (cfg.num_avg - 1) + S // 2 - 8
     slot = np.angle(soft) * 8 / (2 * np.pi)
@@ -1881,7 +1922,8 @@ def mixed_engine_phase(torch, dev, card) -> int:
     if not gpu.steady or gpu.metrics.reconfigures != 1:
         raise AssertionError("mixed: not back on the kernel after "
                              "set_params")
-    err = compare_packets(gpu_pkts, cpu_pkts, "mixed")
+    err = max(compare_service(gpu_pkts, cpu_pkts, "mixed",
+                              rows=CPU_C).values())
     width = {p[PORT_BITS].data.shape[1] // max(1, p["softDecision_"
              "dataFloat_out"].data.shape[1]) for p in gpu_pkts if p}
     if width != {3}:
@@ -2122,6 +2164,483 @@ def b1_mode_times(torch, dev, card, event_ms) -> dict:
                         "bytes": nbytes, "ops": ops, "card": card}))
         del blocks, args
     return out
+
+
+# --- phases 16-19: the plain service path (exact scan, StreamEngine,
+# StreamRegistry, BatchEngine, GroupEngine); no kernel runs on it.
+GOLDEN_NSYM = 1000            # tests/test_golden.py's golden vectors
+GOLDEN_TOL = 1e-3             # the reference's own soft tolerance
+ORACLE_CASES = ((2, False, 0.0), (4, False, 1e-4), (8, False, 0.0),
+                (4, True, 0.0))   # tests/test_oracle_parity.py:27-28
+EXACT_STEADY_BLOCKS = 3       # the exact scan: 1 warm-up + 3 blocks
+# BASELINE configs 1 and 2 (config 3 is CFG3): eval/baseline_configs.py.
+CFG1 = dict(sps=8, num_avg=100, constellation_size=2, phase_avg=50)
+CFG2 = dict(sps=10, num_avg=50, constellation_size=4, phase_avg=50)
+REGISTRY_STREAMS = 64         # BASELINE config 4's channel count
+NAN_AT, INF_AT = (5, 2), (77, 6)   # phase 17's (channel, block) plantings
+
+
+def decisive_signal(nsym: int, sps: int, m: int, peak: int, seed: int,
+                    diff: bool = False, foff: float = 0.0) -> np.ndarray:
+    """tests/test_oracle_parity.py:13-23: PSK with all energy on sample
+    ``peak`` of each symbol, a frequency offset, real noise of std 0.02."""
+    rng = np.random.default_rng(seed)
+    j = rng.integers(0, m, nsym)
+    pts = np.exp(2j * np.pi * j / m)
+    if diff:
+        pts = np.cumprod(pts)
+    x = np.zeros(nsym * sps, np.complex64)
+    x[peak::sps] = pts * np.exp(2j * np.pi * foff * sps * np.arange(nsym))
+    x += (0.02 * rng.standard_normal(x.size)).astype(np.complex64)
+    return x
+
+
+def golden_phase(torch, dev, card) -> dict:
+    """Phase 16: the reference's golden vectors on the card.  The port's
+    gen_psk (1000 symbols, sps 8, num_avg 100, phase_avg 50) through
+    make_demod_fn(cfg) with the carry on the card, M in {2, 4, 8},
+    differential and not (tests/test_golden.py's six scenarios): 901 valid
+    outputs; the largest soft error against the transmitted symbols under
+    1e-3 (modulo the M rotations when not differential, symbol 0 left out
+    when differential); bits exact where the rotation is known
+    (differential).  Then the port's demod_reference on
+    tests/test_oracle_parity.py's decisive signals against the card's
+    exact scan: sample index equal, soft and phase within 2e-3."""
+    from psk_soft_tpu_torch import DemodConfig, demod_init, make_demod_fn
+    from psk_soft_tpu_torch.testing.oracle import demod_reference
+    from psk_soft_tpu_torch.testing.signals import gen_psk
+
+    golden = {}
+    for m in (2, 4, 8):
+        for diff in (False, True):
+            cfg = DemodConfig(sps=8, num_avg=100, constellation_size=m,
+                              phase_avg=50, differential=diff)
+            x, syms = gen_psk(GOLDEN_NSYM, 8, m, differential=diff)
+            st = demod_init(cfg, device=dev)
+            t0 = time.perf_counter()
+            st, out = make_demod_fn(cfg)(st, x)
+            valid = out.valid.cpu().numpy()
+            host_s = time.perf_counter() - t0
+            on = torch.device(dev).type
+            if out.soft.device.type != on or st.ring.device.type != on:
+                raise AssertionError("golden: the scan left the card")
+            soft = out.soft.cpu().numpy()[valid]
+            bits = out.bits.cpu().numpy()[valid]
+            n = soft.shape[0]
+            if n != GOLDEN_NSYM - (cfg.num_avg - 1):
+                raise AssertionError(f"golden M{m} diff {diff}: {n} valid")
+            exp = syms[:n]
+            if diff:
+                rot = np.exp(1j * np.pi / 4) if m == 4 else 1.0
+                err = float(np.abs(soft[1:] - exp[1:] * rot).max())
+                j = np.round(np.angle(exp) / (2 * np.pi / m)).astype(
+                    int) % m
+                if m == 2:
+                    want = j[:, None]
+                elif m == 4:
+                    ang = 2 * np.pi * j / 4 + np.pi / 4
+                    si = (np.sin(ang) < 0).astype(int)
+                    want = np.stack([(np.cos(ang) < 0).astype(int) ^ si,
+                                     si], axis=1)
+                else:
+                    want = np.stack([(j >> k) & 1 for k in range(3)], 1)
+                nb = cfg.bits_per_symbol
+                if not np.array_equal(bits[1:, :nb], want[1:, :nb]):
+                    raise AssertionError(f"golden M{m} differential: bits")
+            else:
+                thetas = [k * 2 * np.pi / m + (np.pi / 4 if m == 4 else 0)
+                          for k in range(m)]
+                err = min(float(np.abs(soft[1:] * np.exp(1j * t)
+                                       - exp[1:]).max()) for t in thetas)
+            if not err < GOLDEN_TOL:
+                raise AssertionError(f"golden M{m} diff {diff}: soft "
+                                     f"error {err}")
+            golden[f"M{m}{'d' if diff else ''}"] = dict(
+                valid=int(n), soft_max_err=err, host_s=host_s)
+    oracle = {}
+    for m, diff, foff in ORACLE_CASES:
+        x = decisive_signal(300, 8, m, peak=5, seed=m, diff=diff, foff=foff)
+        ref = demod_reference(x, 8, 30, m, 15, differential=diff)
+        cfg = DemodConfig(sps=8, num_avg=30, constellation_size=m,
+                          phase_avg=15, differential=diff)
+        _, out = make_demod_fn(cfg)(demod_init(cfg, device=dev), x)
+        v = out.valid.cpu().numpy()
+        idx = out.sample_index.cpu().numpy()[v]
+        if v.sum() != ref["soft"].size or not np.array_equal(
+                idx, ref["sample_index"]):
+            raise AssertionError(f"oracle M{m}: {v.sum()} outputs vs "
+                                 f"{ref['soft'].size}, or indices differ")
+        errs = dict(soft=float(np.abs(out.soft.cpu().numpy()[v]
+                                      - ref["soft"]).max()),
+                    phase=float(np.abs(out.phase.cpu().numpy()[v]
+                                       - ref["phase"]).max()))
+        if max(errs.values()) > PHASE_TOL:
+            raise AssertionError(f"oracle M{m} diff {diff}: {errs}")
+        oracle[f"M{m}{'d' if diff else ''}_f{foff}"] = errs
+    log(json.dumps({"phase": "golden", "scenarios": golden,
+                    "oracle_vs_card": oracle, "card": card}))
+    return {"golden_max_err": max(g["soft_max_err"]
+                                  for g in golden.values()),
+            "oracle_max_err": max(max(e.values()) for e in oracle.values())}
+
+
+def bank_drive(eng, x: np.ndarray, n_blocks: int, tail: bool) -> list:
+    """Push (C, T) samples channel by channel into a BatchEngine, one
+    block at a time, step_packets after each; then the rest and
+    flush_packets when ``tail``."""
+    need = eng.block_symbols * eng.cfg.sps
+    pkts = []
+    for b in range(n_blocks):
+        for c in range(eng.channels):
+            eng.push(c, x[c, b * need:(b + 1) * need])
+        pkts.append(eng.step_packets())
+    if tail:
+        for c in range(eng.channels):
+            eng.push(c, x[c, n_blocks * need:])
+        pkts.append(eng.flush_packets())
+    return pkts
+
+
+def batch_engine_phase(torch, dev, card) -> dict:
+    """Phase 17: BatchEngine at the engine cell's widths (1024 channels x
+    512 symbols, sps 8, QPSK, num_avg 100, phase_avg 50) on the card
+    against the same engine on the CPU for the first CPU_C channels
+    (compare_service; channel_resyncs equal).  Pipeline "ff": 1 warm-up +
+    STEADY_BLOCKS blocks and a flush, guard_nonfinite with NaN and +inf
+    planted in two channels (NAN_AT, INF_AT).  Pipeline
+    "exact": 1 + EXACT_STEADY_BLOCKS blocks.  Then the exact scan's ms per
+    block (CUDA events and the host clock) with one profiled pass (device
+    busy share, operations a block), and the ff engine's samples/s at
+    pipeline depth 0 and 1."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models.psk import demod_block
+    from psk_soft_tpu_torch.runtime.engine import BatchEngine
+    from psk_soft_tpu_torch.runtime.streams import SRI
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    need = S * SPS
+    n_blocks = 1 + STEADY_BLOCKS
+    x = channels(n_blocks * S + S // 2, n_ch=C)
+    poisoned = x.copy()
+    poisoned[NAN_AT[0], NAN_AT[1] * need + 100:
+             NAN_AT[1] * need + 120] = np.nan
+    poisoned[INF_AT[0], INF_AT[1] * need + 400] = np.inf
+
+    def run(device, width, pipeline, data, blocks, tail, **kw):
+        eng = BatchEngine(cfg, width, block_symbols=S, pipeline=pipeline,
+                          device=device, **kw)
+        eng.set_input_sri(SRI(stream_id="bank", xdelta=1e-6), t=1.0)
+        return bank_drive(eng, data[:width], blocks, tail), eng
+
+    out = {}
+    for pipeline, data, blocks, tail, kw in (
+            ("ff", poisoned, n_blocks, True, dict(guard_nonfinite=True)),
+            ("exact", x, 1 + EXACT_STEADY_BLOCKS, False, {})):
+        t0 = time.perf_counter()
+        gpu_pkts, gpu = run(dev, C, pipeline, data, blocks, tail, **kw)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        cpu_pkts, cpu = run("cpu", CPU_C, pipeline, data, blocks, tail, **kw)
+        err = compare_service(gpu_pkts, cpu_pkts, f"BatchEngine "
+                              f"{pipeline}", rows=CPU_C)
+        resyncs = gpu.channel_resyncs
+        if not np.array_equal(resyncs[:CPU_C], cpu.channel_resyncs) \
+                or (pipeline == "ff" and {int(c): int(resyncs[c]) for c in
+                                          np.flatnonzero(resyncs)}
+                    != {NAN_AT[0]: 1, INF_AT[0]: 1}):
+            raise AssertionError(f"{pipeline}: channel_resyncs "
+                                 f"{np.flatnonzero(resyncs)}")
+        expect = blocks * S - (NUM_AVG - 1) + (S // 2 if tail else 0)
+        soft = np.concatenate([p["softDecision_dataFloat_out"].data
+                               for p in gpu_pkts if p], axis=1)
+        # A resynced channel warms up again: num_avg - 1 fewer outputs.
+        lost = (NUM_AVG - 1) * int(resyncs.sum())
+        if soft.shape != (C, expect) or gpu.metrics.symbols_out \
+                != C * expect - lost:
+            raise AssertionError(f"{pipeline}: soft {soft.shape}, "
+                                 f"expected {expect} symbols")
+        healthy = np.isfinite(soft).all(axis=1)
+        out[pipeline] = dict(blocks=blocks, flush=tail, symbols=expect,
+                             max_err_vs_cpu=err, seconds=gpu_s,
+                             nonfinite_channels=np.flatnonzero(
+                                 ~healthy).tolist())
+        if pipeline == "exact":
+            state = gpu._state
+    log(json.dumps({"phase": "batch_engine", "channels": C,
+                    "cpu_channels": CPU_C, "runs": out,
+                    "channel_resyncs": {str(NAN_AT[0]): 1,
+                                        str(INF_AT[0]): 1}, "card": card}))
+
+    # The exact scan's block time: demod_block on the card from the warm
+    # carry, three blocks, CUDA events and the host clock (dispatch alone,
+    # and until the card is done).
+    xb = [torch.from_numpy(x[:, b * need:(b + 1) * need]).to(dev)
+          for b in range(EXACT_STEADY_BLOCKS)]
+    demod_block(cfg, state, xb[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for blk in xb:
+        state, _ = demod_block(cfg, state, blk)
+    stop.record()
+    t_dispatch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    n = len(xb)
+    exact_times = dict(event_ms=start.elapsed_time(stop) / n,
+                       host_ms=t_host * 1e3 / n,
+                       host_dispatch_ms=t_dispatch * 1e3 / n)
+    log(json.dumps({"phase": "timing", "what": "exact scan block "
+                    "(models/psk.demod_block)", "channels": C,
+                    "symbols": S, "sps": SPS, "blocks": n, **exact_times,
+                    "samples_per_s": need * C / (exact_times["host_ms"]
+                                                 * 1e-3),
+                    "card": card}))
+
+    def exact_feed(b):
+        nonlocal state
+        state, _ = demod_block(cfg, state, xb[b % n])
+
+    profile_engine(exact_feed, card, what="exact scan block", blocks=2)
+
+    # The ff BatchEngine end to end (pushes, step, fetch and assembly).
+    ff_times = {}
+    for depth in (0, 1):
+        eng = BatchEngine(cfg, C, block_symbols=S, pipeline_depth=depth,
+                          device=dev)
+        eng.set_input_sri(SRI(stream_id="bank", xdelta=1e-6))
+        bank_drive(eng, x, 3, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(STEADY_BLOCKS):
+            for c in range(C):
+                eng.push(c, x[c, (b % n_blocks) * need:
+                              (b % n_blocks + 1) * need])
+            eng.step_packets()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ff_times[depth] = STEADY_BLOCKS * need * C / dt
+        log(json.dumps({"phase": "timing", "what": "BatchEngine ff end to "
+                        "end", "pipeline_depth": depth, "channels": C,
+                        "blocks": STEADY_BLOCKS, "seconds": dt,
+                        "samples_per_s": ff_times[depth], "card": card}))
+    return dict(exact=exact_times, ff_samples_per_s=ff_times)
+
+
+def service_script(x: np.ndarray) -> list:
+    """One stream's packets of the phase-18 script: 26 packets from t = 0,
+    xdelta 1e-3, the rate doubled from packet 5 (times follow it),
+    configure phase_avg 50 -> 40 before packet 8 and M 4 -> 8 before packet
+    15, packet 10 flagged as after a queue flush, a real-mode packet before
+    packet 12, and EOS on the last (a partial block and a tail shorter
+    than sps when x ends so)."""
+    steps, t, xd = [], 0.0, 1e-3
+    size = -(-x.size // 26)
+    for k, i in enumerate(range(0, x.size, size)):
+        if k == 5:
+            xd = 2e-3
+        if k == 8:
+            steps.append(("configure", dict(phase_avg=40)))
+        if k == 12:
+            steps.append(dict(data=np.ones(800, np.complex64), t=t, xd=xd,
+                              mode=0))
+        if k == 15:
+            steps.append(("configure", dict(phase_avg=40,
+                                            constellation_size=8)))
+        seg = x[i:i + size]
+        steps.append(dict(data=seg, t=t, xd=xd, flushed=k == 10,
+                          eos=i + size >= x.size))
+        t += seg.size * xd
+    return steps
+
+
+def service_phase(torch, dev, card) -> dict:
+    """Phase 18: StreamEngine and StreamRegistry on the card against a CPU
+    run.  One stream of 20 blocks of 512 symbols (sps 8, QPSK, num_avg
+    100, phase_avg 50) through each pipeline with service_script's events
+    (rate change, two configures, queue flush, real-mode packet, EOS with
+    a partial block); then REGISTRY_STREAMS interleaved streams at config
+    4's widths through StreamRegistry (ff).  Packets, SRIs, timestamps,
+    metrics and port_stats counts equal the CPU run's (compare_service).
+    Then one stream's samples/s in each pipeline."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.runtime.engine import (StreamEngine,
+                                                   StreamRegistry)
+    from psk_soft_tpu_torch.runtime.streams import SRI, Packet
+
+    kw0 = dict(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+               phase_avg=PHASE_AVG)
+    x = channels(20 * S, n_ch=1)[0][:20 * S * SPS - S * SPS // 2 - 3]
+    script = service_script(x)
+
+    def run_stream(device, pipeline):
+        eng = StreamEngine(DemodConfig(**kw0), S, pipeline, device=device)
+        outs = []
+        for st in script:
+            if isinstance(st, tuple):
+                eng.configure(DemodConfig(**dict(kw0, **st[1])))
+                continue
+            sri = SRI(stream_id="one", xdelta=st["xd"],
+                      mode=st.get("mode", 1))
+            outs.append(eng.process(Packet(
+                data=st["data"], sri=sri, t=st["t"],
+                eos=st.get("eos", False),
+                input_queue_flushed=st.get("flushed", False))))
+        return outs, eng
+
+    def stats(eng):
+        return {p: (s.packets, s.items, s.bytes, s.eos_count, s.last_t)
+                for p, s in eng.port_stats.items()}
+
+    res = {}
+    for pipeline in ("ff", "exact"):
+        g, ge = run_stream(dev, pipeline)
+        c, ce = run_stream("cpu", pipeline)
+        err = compare_service(g, c, f"StreamEngine {pipeline}")
+        if dataclasses.asdict(ge.metrics) != dataclasses.asdict(ce.metrics) \
+                or stats(ge) != stats(ce) or ge.metrics.reconfigures != 2 \
+                or ge.metrics.real_mode_drops != 1 \
+                or ge.metrics.resets != 1 or not all(
+                    p.eos for p in g[-1].values()):
+            raise AssertionError(f"StreamEngine {pipeline}: metrics "
+                                 f"{ge.metrics} vs {ce.metrics}")
+        res[pipeline] = dict(max_err_vs_cpu=err,
+                             metrics=dataclasses.asdict(ge.metrics))
+
+    cfg4 = DemodConfig(**CFG4)
+    xs = channels(2 * S + S // 2 + 7, n_ch=REGISTRY_STREAMS)
+    order = []
+    for i in range(0, xs.shape[1], 1024):
+        for s in range(REGISTRY_STREAMS):
+            order.append((f"s{s}", xs[s, i:i + 1024], i * 1e-6,
+                          i + 1024 >= xs.shape[1]))
+
+    def run_registry(device):
+        reg = StreamRegistry(cfg4, S, "ff", device=device)
+        outs = [reg.process(Packet(data=d, sri=SRI(stream_id=sid,
+                                                   xdelta=1e-6),
+                                   t=t, eos=eos))
+                for sid, d, t, eos in order]
+        return outs, reg
+
+    g, greg = run_registry(dev)
+    c, _ = run_registry("cpu")
+    reg_err = compare_service(g, c, "StreamRegistry")
+    if greg.engines:
+        raise AssertionError("StreamRegistry: streams left after EOS")
+    res["registry"] = dict(streams=REGISTRY_STREAMS, outputs=len(g),
+                           max_err_vs_cpu=reg_err)
+    log(json.dumps({"phase": "stream_engine", "symbols": x.size // SPS,
+                    **res, "card": card}))
+
+    rates = {}
+    for pipeline in ("ff", "exact"):
+        eng = StreamEngine(DemodConfig(**kw0), S, pipeline, device=dev)
+        sri = SRI(stream_id="rate", xdelta=1e-6)
+        blocks = [x[b * S * SPS:(b + 1) * S * SPS] for b in range(12)]
+        for blk in blocks[:2]:
+            eng.process(Packet(data=blk, sri=sri))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blk in blocks[2:]:
+            eng.process(Packet(data=blk, sri=sri))
+        dt = time.perf_counter() - t0
+        rates[pipeline] = 10 * S * SPS / dt
+        log(json.dumps({"phase": "timing", "what": "StreamEngine one "
+                        "stream", "pipeline": pipeline, "blocks": 10,
+                        "seconds": dt, "samples_per_s": rates[pipeline],
+                        "card": card}))
+    return dict(stream_samples_per_s=rates)
+
+
+def group_phase(torch, dev, card) -> dict:
+    """Phase 19: GroupEngine over BASELINE configs 1, 2 and 3 (channel c
+    takes config c % 3), 1024 channels in all, on the card against a CPU
+    run of the first CPU_C channels: 4 blocks of 512 symbols through
+    step_all_packets with a partition-preserving configure (config 1
+    phase_avg 50 -> 40, config 2 num_avg 50 -> 40, config 3 phase_avg 40
+    -> 30) before the third, then the rest through flush_all_packets; a
+    configure that would split a group raises and changes nothing."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.runtime.engine import GroupEngine
+    from psk_soft_tpu_torch.runtime.streams import SRI
+
+    kws = (CFG1, CFG2, CFG3)
+    news = (dict(CFG1, phase_avg=40), dict(CFG2, num_avg=40),
+            dict(CFG3, phase_avg=30))
+    members = [list(range(g, C, 3)) for g in range(3)]
+    n_sym = 4 * S + S // 2
+    sigs = {}
+    for g, ch in enumerate(members):
+        kw = kws[g]
+        bank = (shaped_channels(n_sym, 8, n_ch=len(ch)) if g == 2 else
+                channels(n_sym, m=kw["constellation_size"], n_ch=len(ch),
+                         sps=kw["sps"]))
+        for slot, c in enumerate(ch):
+            sigs[c] = bank[slot]
+
+    def run(device, width):
+        ge = GroupEngine([DemodConfig(**kws[c % 3]) for c in range(width)],
+                         block_symbols=S, device=device)
+        ge.set_input_sri(SRI(stream_id="group", xdelta=1e-6), t=3.0)
+        outs = []
+        for b in range(4):
+            if b == 2:
+                ge.configure([DemodConfig(**news[c % 3])
+                              for c in range(width)])
+            for c in range(width):
+                n = S * kws[c % 3]["sps"]
+                ge.push(c, sigs[c][b * n:(b + 1) * n])
+            outs.append(ge.step_all_packets())
+        split = [DemodConfig(**news[c % 3]) for c in range(width)]
+        split[3] = DemodConfig(**CFG1)
+        try:
+            ge.configure(split)
+        except ValueError as e:
+            if "splits group 0" not in str(e):
+                raise
+        else:
+            raise AssertionError("a splitting configure did not raise")
+        if [g[0] for g in ge.groups] != [DemodConfig(**k) for k in news]:
+            raise AssertionError("the refused configure changed a group")
+        for c in range(width):
+            n = S * kws[c % 3]["sps"]
+            ge.push(c, sigs[c][4 * n:])
+        outs.append(ge.flush_all_packets())
+        return outs, ge
+
+    t0 = time.perf_counter()
+    g_outs, gge = run(dev, C)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    c_outs, cge = run("cpu", CPU_C)
+    err = {"soft": 0.0, "phase": 0.0}
+    for gi in range(3):
+        k = len(cge.groups[gi][1])
+        e = compare_service([o.get(gi) for o in g_outs],
+                            [o.get(gi) for o in c_outs], f"group {gi}",
+                            rows=k)
+        err = {key: max(err[key], e[key]) for key in err}
+    symbols = {}
+    for gi, (cfg, mem, eng) in enumerate(gge.groups):
+        soft = np.concatenate([o[gi]["softDecision_dataFloat_out"].data
+                               for o in g_outs if o.get(gi)], axis=1)
+        if soft.shape[0] != len(mem) or not np.isfinite(soft).all():
+            raise AssertionError(f"group {gi}: soft {soft.shape}")
+        symbols[gi] = soft.shape[1]
+    ps = gge.port_stats
+    if ps["softDecision_dataFloat_out"].eos_count != 3:
+        raise AssertionError(f"group port_stats: {ps}")
+    log(json.dumps({"phase": "group_engine", "channels": C,
+                    "cpu_channels": CPU_C,
+                    "groups": [len(m) for m in members],
+                    "symbols_per_group": symbols, "max_err_vs_cpu": err,
+                    "split_configure_raised": True, "seconds": gpu_s,
+                    "card": card}))
+    return err
 
 
 def main() -> int:
@@ -2393,6 +2912,15 @@ def main() -> int:
     chain = chain_phases(torch, dev, card, profile_engine)
     acq = acquire_phase(torch, dev, card)
     long_launches = long_trellis_phase(torch, dev)
+    golden = golden_phase(torch, dev, card)
+    bank17 = batch_engine_phase(torch, dev, card)
+    stream18 = service_phase(torch, dev, card)
+    group19 = group_phase(torch, dev, card)
+    log(json.dumps({"phase": "service_path", "golden": golden,
+                    "exact_block_ms": bank17["exact"],
+                    "batch_ff_samples_per_s": bank17["ff_samples_per_s"],
+                    **stream18, "group_max_err_vs_cpu": group19,
+                    "card": card}))
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},

@@ -55,6 +55,14 @@ def mth_power_phase_dynamic(sample: torch.Tensor,
     return torch.atan2(pick.imag, pick.real).to(torch.float32)
 
 
+def unwrap_step(prev_estimate: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """One reference unwrap (cpp/psk_soft.cpp:477-478): shift ``raw`` by
+    whole turns toward the estimate.  Half-turn ties round to even, as
+    ``jnp.round`` does."""
+    wraps = torch.round((prev_estimate - raw) / TWO_PI)
+    return raw + wraps * TWO_PI
+
+
 def block_unwrap(raw: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """Prefix unwrap of ``raw`` (last axis) against the carried ``prev``:
     each element moves by whole turns so successive differences lie in

@@ -52,6 +52,14 @@ def _nonfinite_channels(*planes, axis: int) -> torch.Tensor:
     return ~ok.all(dim=axis)
 
 
+def _reset_channels(state, fresh, bad: torch.Tensor):
+    """``state`` (a NamedTuple carry, channels leading) with the channels
+    flagged in ``bad`` (C,) taken from ``fresh``."""
+    return type(state)(*(
+        torch.where(bad.reshape((-1,) + (1,) * (o.ndim - 1)), n, o)
+        for n, o in zip(fresh, state)))
+
+
 class FullKernelBatchEngine(_PipelinedPackets):
     """Bank engine for the single-kernel flagship: warms up through the
     channel-major feed-forward pipeline, then hands the carry to kernel B1
@@ -381,14 +389,9 @@ class FullKernelBatchEngine(_PipelinedPackets):
                                   axis=-1)
         if not self._note_bad(bad).any():
             return
-        fresh = blockpsk.ff_init(self.cfg, self.channels, self.device)
-
-        def pick(new, old):
-            return torch.where(bad.reshape((-1,) + (1,) * (old.ndim - 1)),
-                               new, old)
-
-        self._warm_state = blockpsk.FFState(
-            *(pick(n, o) for n, o in zip(fresh, self._warm_state)))
+        self._warm_state = _reset_channels(
+            self._warm_state,
+            blockpsk.ff_init(self.cfg, self.channels, self.device), bad)
 
     def _step_core(self):
         """One block: warm-up returns channel-major DemodOutputs; the

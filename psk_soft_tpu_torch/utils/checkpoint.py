@@ -28,7 +28,6 @@ from ..config import DemodConfig
 
 # Classes of the JAX package the port has not ported yet.
 _LATER = {
-    "DemodState": "A.5, the exact single-stream service path",
     "EqState": "A.8, front ends (equalizer)",
     "ViterbiStreamState": "A.7, the streaming Viterbi decoder",
 }
@@ -41,10 +40,11 @@ def _registry() -> dict:
     from ..models.full import FullState
     from ..models.fused import FusedState
     from ..ops.agc import AgcState
+    from ..state import DemodState
 
     return {cls.__name__: cls for cls in (
-        FFState, SymbolBackendState, FusedState, FullState, AgcState,
-        SeamTailState, ChainState, FrontState, FrontChainState)}
+        DemodState, FFState, SymbolBackendState, FusedState, FullState,
+        AgcState, SeamTailState, ChainState, FrontState, FrontChainState)}
 
 
 def _state_class(name: str):

@@ -26,6 +26,7 @@ from ..ops.agc import AgcConfig, AgcState
 from ..ops.crc import CrcSpec
 from ..ops.fec import ConvCode
 from ..ops.framesync import FrameFormat
+from ..state import DemodState
 
 
 def config_from_jax_dict(d: Mapping) -> DemodConfig:
@@ -43,6 +44,17 @@ def _from_numpy(cls, arrays: Mapping, device):
 
 def _to_numpy(state) -> dict:
     return {f: getattr(state, f).cpu().numpy() for f in state._fields}
+
+
+def demod_state_from_numpy(arrays: Mapping, device) -> DemodState:
+    """The exact scan's DemodState on ``device`` from a mapping of its
+    fields (one chain, or channels leading; e.g. the JAX DemodState's
+    fields as numpy)."""
+    return _from_numpy(DemodState, arrays, device)
+
+
+def demod_state_to_numpy(state: DemodState) -> dict:
+    return _to_numpy(state)
 
 
 def ff_state_from_numpy(arrays: Mapping, device) -> FFState:

@@ -5,8 +5,10 @@ package loads in the other (ROADMAP A.10).
 Held equal: every leaf after JAX save -> port load and port save -> JAX
 load (dtypes kept: complex split and rejoined, int32, bool, int16), the
 config and ``extra``; a port continuation from a JAX checkpoint against
-the JAX continuation at frame level (found, pos, msg, ok equal); the
-engine's save -> load -> restore_full_state continuation bit-equal.
+the JAX continuation at frame level (found, pos, msg, ok equal), and for
+the exact scan's DemodState (bits and sample index equal, soft and phase
+within 2e-3); the engine's save -> load -> restore_full_state continuation
+bit-equal.
 """
 
 import dataclasses
@@ -21,6 +23,8 @@ import pytest
 import torch
 
 from psk_soft_tpu import DemodConfig as JaxDemodConfig
+from psk_soft_tpu import demod_init as jax_demod_init
+from psk_soft_tpu import make_demod_fn as jax_make_demod_fn
 from psk_soft_tpu.models import chain as jchain
 from psk_soft_tpu.models.blockpsk import demod_block_ff as jax_demod_block_ff
 from psk_soft_tpu.models.blockpsk import ff_init as jax_ff_init
@@ -34,6 +38,7 @@ from psk_soft_tpu.ops.crc import CRC16_CCITT as JAX_CRC16
 from psk_soft_tpu.ops.fec import CODE_K7 as JAX_K7
 from psk_soft_tpu.ops.framesync import FrameFormat as JaxFrameFormat
 from psk_soft_tpu.utils import checkpoint as jckpt
+from psk_soft_tpu_torch import make_demod_fn
 from psk_soft_tpu_torch.config import DemodConfig
 from psk_soft_tpu_torch.models import chain
 from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
@@ -94,6 +99,12 @@ def _jax_state(kind):
     freqs = np.linspace(1e-3, 2e-2, C).astype(np.float32)
     if kind == "full":
         return full
+    if kind.startswith("demod"):
+        bank = kind == "demod_bank"
+        st, _ = jax_make_demod_fn(jcfg, C if bank else None)(
+            jax_demod_init(jcfg, C if bank else None),
+            jnp.asarray(x if bank else x[0]))
+        return st
     if kind == "chain":
         return jchain.chain_init(fmt, C, full)
     if kind == "fused":
@@ -107,7 +118,7 @@ def _jax_state(kind):
 
 
 @pytest.mark.parametrize("kind", ["full", "chain", "fused", "front",
-                                  "front_agc"])
+                                  "front_agc", "demod", "demod_bank"])
 def test_checkpoints_cross_between_packages(kind, tmp_path):
     jst = _jax_state(kind)
     jcfg = JaxDemodConfig(**KW)
@@ -177,6 +188,38 @@ def test_port_continues_a_jax_chain_checkpoint(tmp_path):
     assert n_found >= C        # the frame across the cut decoded on resume
 
 
+def test_port_continues_a_jax_demod_state(tmp_path):
+    """The exact scan's carry after 160 symbols, saved by the JAX package,
+    resumes the port's scan as the JAX scan goes on (and a port-saved
+    carry loads back in JAX)."""
+    jcfg, cfg = JaxDemodConfig(**KW), DemodConfig(**KW)
+    jst = _jax_state("demod_bank")
+    path = os.path.join(tmp_path, "demod.npz")
+    jckpt.save_state(path, jst, jcfg, extra={"symbols": 160})
+    st, cfg_l, extra = checkpoint.load_state(path, "cpu")
+    assert cfg_l == cfg and extra == {"symbols": 160}
+    rng = np.random.default_rng(21)
+    x = np.exp(2j * np.pi * (rng.integers(0, 4, (C, 64)) / 4 + 0.01))
+    x = np.repeat(x, SPS, axis=1).astype(np.complex64)
+    x += (0.01 * rng.standard_normal(x.shape)).astype(np.complex64)
+    x[:, 2::SPS] *= 2                       # a decisive timing peak
+    jst2, jout = jax_make_demod_fn(jcfg, C)(jst, jnp.asarray(x))
+    st2, out = make_demod_fn(cfg, C)(st, x)
+    np.testing.assert_array_equal(out.bits.numpy(), np.asarray(jout.bits))
+    np.testing.assert_array_equal(out.sample_index.numpy(),
+                                  np.asarray(jout.sample_index))
+    np.testing.assert_allclose(out.soft.numpy(), np.asarray(jout.soft),
+                               atol=2e-3)
+    np.testing.assert_allclose(out.phase.numpy(), np.asarray(jout.phase),
+                               atol=2e-3)
+    back = os.path.join(tmp_path, "port.npz")
+    checkpoint.save_state(back, st2, cfg)
+    jst3, _, _ = jckpt.load_state(back)
+    _assert_same(st2, jst3)
+    np.testing.assert_array_equal(np.asarray(jst3.ring_fill),
+                                  np.asarray(jst2.ring_fill))
+
+
 def test_engine_save_load_restore_is_exact(tmp_path):
     """full_state -> save_state -> load_state -> restore_full_state in a
     fresh engine: the continuation is bit-equal."""
@@ -237,13 +280,11 @@ def test_unported_classes_raise(tmp_path):
     ROADMAP step; a JAX int16-window FullState loads as int16 and restores
     into an int16-ingest engine, whose carry then equals the JAX one (an
     engine without ingest_scale refuses it)."""
-    from psk_soft_tpu import demod_init
     from psk_soft_tpu.ops.equalizer import EqConfig, eq_init
     from psk_soft_tpu.ops.fec import viterbi_stream_init
 
     jcfg = JaxDemodConfig(**KW)
-    for st, step in ((demod_init(jcfg), "A.5"),
-                     (eq_init(EqConfig(taps=5), (2,)), "A.8"),
+    for st, step in ((eq_init(EqConfig(taps=5), (2,)), "A.8"),
                      (viterbi_stream_init(JAX_K7, 2, 40), "A.7")):
         path = os.path.join(tmp_path, f"{type(st).__name__}.npz")
         jckpt.save_state(path, st, jcfg)

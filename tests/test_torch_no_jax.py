@@ -1,7 +1,9 @@
 """The port never imports jax or psk_soft_tpu: a fresh interpreter with both
 blocked in sys.modules imports every module of psk_soft_tpu_torch and runs
 one CPU engine step, a configure, a checkpoint round trip, a fused step,
-and CPU ChainEngine warm-up and steady steps, plain and acquire_cfo."""
+CPU ChainEngine warm-up and steady steps, plain and acquire_cfo, the
+exact-scan top-level names on a golden vector, a CPU StreamEngine in both
+pipelines through EOS, and a GroupEngine step."""
 
 import os
 import subprocess
@@ -71,6 +73,34 @@ for _ in range(2):
     acq.push_planes(x, x[::-1].copy())
     assert isinstance(acq.step(), list)
 assert acq.cfo_estimates.shape == (128,)
+from psk_soft_tpu_torch import (DemodOutputs, DemodState, demod_block,
+                                demod_init, init_state, make_demod_fn,
+                                reconfigure)
+from psk_soft_tpu_torch.runtime.engine import (BatchEngine, GroupEngine,
+                                               StreamEngine, StreamRegistry)
+from psk_soft_tpu_torch.runtime.streams import SRI, Packet
+from psk_soft_tpu_torch.testing.oracle import demod_reference
+from psk_soft_tpu_torch.testing.signals import gen_psk
+gx, _ = gen_psk(300, 8, 4)
+gcfg = DemodConfig(sps=8, num_avg=100, constellation_size=4, phase_avg=50)
+gst, gout = make_demod_fn(gcfg)(demod_init(gcfg, device="cpu"), gx)
+assert isinstance(gst, DemodState) and isinstance(gout, DemodOutputs)
+assert int(gout.valid.sum()) == 201
+assert demod_reference(gx, 8, 100, 4, 50)["soft"].size == 201
+gst = reconfigure(gcfg, DemodConfig(sps=8, num_avg=100, constellation_size=4,
+                                    phase_avg=20), gst)
+assert int(gst.ring_fill) == 20
+for pipeline in ("ff", "exact"):
+    se = StreamEngine(gcfg, 128, pipeline, device="cpu")
+    outs = [se.process(Packet(data=gx[i:i + 800], sri=SRI("s"),
+                              eos=i + 800 >= gx.size))
+            for i in range(0, gx.size, 800)]
+    assert all(p.eos for p in outs[-1].values())
+    assert se.metrics.symbols_out == 201 and se.metrics.eos_seen == 1
+ge = GroupEngine([cfg, gcfg, cfg], block_symbols=64, device="cpu")
+for ch, c in enumerate([cfg, gcfg, cfg]):
+    ge.push(ch, gx[:64 * c.sps])
+assert sorted(ge.step_all()) == [0, 1, 2]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
