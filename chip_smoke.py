@@ -117,11 +117,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      that raises, flush_all_packets, against a 128-channel CPU run.
 Phases 16-19 run no kernel: the exact scan and the feed-forward pipeline
 are plain PyTorch, as they are plain XLA in the JAX package.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-19.  Each path's
-launch counts are set to 0 just before it runs and read just after; the
-kernels line takes B1's and B2's from phase 7, B3's and B4's from phase 13,
-B5's from phase 10, B1's int16, timing_interp, matched-filter, config-3
-and stage-0 launches from phase 14 and its mixed launches from phase 15.
+ 20. the streaming Viterbi decoder (ops/fec.viterbi_stream_step: B3 and
+     B4 each block, B4 for the flush): 1024 K7 streams, 6 blocks of 512
+     steps, depth 70, against the plain loops on the CPU (bits and windows
+     equal, metrics within 1e-5 with NaN equal) and, after the lag, one
+     unterminated decode of the whole stream; known_start=False, punctured
+     2/3 and K9 at 256 rows; a checkpoint saved mid-stream on the card,
+     reloaded and continued; StreamFecDecoder under
+     build_receiver(stream_fec=CODE_K7) over FullKernelBatchEngine at
+     1024 channels against a 128-channel CPU run; B3 and B4 at the
+     streaming shape (CUDA events and device time) and the window
+     re-layout's time;
+ 21. viterbi_decode_parallel at 1024 rows x 8192 steps, chunk 512 (16,384
+     windows of 652 steps on B2) and chunk 2048 (2188-step windows on B3 +
+     B4), bits equal to the sequential decode and to the CPU;
+ 22. the per-stage receiver: NativePlaneBank -> build_receiver(engine=
+     "full", UW 32, payload 64, K7 Gray, PRBS15, CRC-16) with the device
+     tap at 1024 channels on phase 7's cadence (payloads scrambled at the
+     transmitter): every planted frame after the warm-up popped once, CRC
+     green, exact info bits; equal to a 128-channel CPU run (frame lists,
+     bits and info bits equal, corr within B1's 3e-3), its frame-side
+     stages replayed on the CPU from the card's tapped blocks (soft and
+     corr within 1e-5), ChainEngine on the
+     same stream, and the runs at depth 1 and without data ports; its
+     infobits/s and samples/s at depth 0 and 1 beside ChainEngine's, the
+     host ms of each stage, a profiled pass; GroupFrameSyncer over the
+     config-4 MixedKernelBatchEngine against a CPU run.  Phase 7 also
+     drives build_receiver(engine="chain") and wants ChainEngine's frames.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-22.  Each
+path's launch counts are set to 0 just before it runs and read just after;
+the kernels line takes B1's and B2's from phase 7, B3's and B4's from
+phase 20 (their times at its shape), B5's from phase 10, B1's int16,
+timing_interp, matched-filter, config-3 and stage-0 launches from phase 14
+and its mixed launches from phase 15.
 
 The last two lines of standard output are a JSON object describing each
 kernel, then ``{"ok": true, "device": {...}}``.
@@ -626,6 +654,17 @@ def viterbi_check(torch, vk, label: str, llr_t, pm0, exp, kw: dict,
     return err
 
 
+def kernel_and_plain_ms(event_ms, kernel, plain, iters_plain: int = 2):
+    """CUDA-event times of a kernel's wrapper and its plain version on the
+    same inputs, in turns (plain, kernel, kernel, plain): ([k1, k2], [p1,
+    p2])."""
+    p1 = event_ms(plain, [()], iters=iters_plain)
+    k1 = event_ms(kernel, [()])
+    k2 = event_ms(kernel, [()])
+    p2 = event_ms(plain, [()], iters=iters_plain)
+    return [k1, k2], [p1, p2]
+
+
 def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     """Phases 6 and 8a: kernels B2, B3 and B4 against their plain versions
     on the card, and their times.  Returns, per kernel, the numbers of the
@@ -823,13 +862,6 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     del dec, bits, st
 
     # --- phase 8a: times (plain, kernel, kernel, plain within the call).
-    def timed(kernel, plain, iters_plain):
-        p1 = event_ms(plain, [()], iters=iters_plain)
-        k1 = event_ms(kernel, [()])
-        k2 = event_ms(kernel, [()])
-        p2 = event_ms(plain, [()], iters=iters_plain)
-        return [k1, k2], [p1, p2]
-
     # The kernels line's "ms" is the CUDA-event time of 20 back-to-back
     # wrapper calls, the lower of two readings, as for B1 and B5; the
     # timing lines add each kernel's own device time (torch.profiler, by
@@ -838,9 +870,9 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     out = {}
     llr_t, pm0, exp, kw = chain_args
     fused_call = lambda: vk.viterbi_fused(llr_t, pm0, exp, **kw)  # noqa
-    k_ms, p_ms = timed(fused_call,
-                       lambda: vk.viterbi_fused_ref(llr_t, pm0, exp, **kw),
-                       10)
+    k_ms, p_ms = kernel_and_plain_ms(
+        event_ms, fused_call,
+        lambda: vk.viterbi_fused_ref(llr_t, pm0, exp, **kw), 10)
     dev_ms = [kernel_device_ms(torch, fused_call, B2_KERNEL)
               for _ in range(2)]
     t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
@@ -859,8 +891,8 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     llr_t, pm0, exp, kw, dec, start, tb = long_args
     t, b, s_count, n = kw["t_actual"], llr_t.shape[2], kw["s_count"], kw["n"]
     acs_call = lambda: vk.viterbi_acs(llr_t, pm0, exp, **kw)  # noqa: E731
-    k_ms, p_ms = timed(acs_call,
-                       lambda: vk.viterbi_acs_ref(llr_t, pm0, exp, **kw), 2)
+    k_ms, p_ms = kernel_and_plain_ms(
+        event_ms, acs_call, lambda: vk.viterbi_acs_ref(llr_t, pm0, exp, **kw))
     dev_ms = [kernel_device_ms(torch, acs_call, B3_KERNEL) for _ in range(2)]
     out["viterbi_acs"] = dict(
         ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=pm_err,
@@ -872,8 +904,8 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
                     "plan": vk.launch_plan(s_count, n, t, b, False)._asdict(),
                     "card": card}))
     tb_call = lambda: vk.viterbi_traceback(dec, start, **tb)  # noqa: E731
-    k_ms, p_ms = timed(tb_call,
-                       lambda: vk.viterbi_traceback_ref(dec, start, **tb), 2)
+    k_ms, p_ms = kernel_and_plain_ms(
+        event_ms, tb_call, lambda: vk.viterbi_traceback_ref(dec, start, **tb))
     dev_ms = [kernel_device_ms(torch, tb_call, B4_KERNEL) for _ in range(2)]
     # The walk reads one decision byte per (step, row): what this data
     # needs, not the whole plane.
@@ -886,12 +918,14 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
     return out
 
 
-def plant_chain_stream(fmt, code, crc, rng):
+def plant_chain_stream(fmt, code, crc, rng, lfsr=None):
     """bench.py's _plant_unaligned_frames with the port's own encoder, CRC
     and Gray mapping: K7 + CRC-16 frames on the cadence max(sep, 104) + 1
-    over the S-periodic stream, planted with wraparound.  Returns (starts,
-    infos (C, k, n_msg), x (C, S*SPS) complex64, n_info)."""
-    from psk_soft_tpu_torch.ops import crc as crc_ops, fec, slicers
+    over the S-periodic stream, planted with wraparound; with ``lfsr``
+    each framed message (info || CRC) is scrambled before the encoder.
+    Returns (starts, infos (C, k, n_msg), x (C, S*SPS) complex64,
+    n_info)."""
+    from psk_soft_tpu_torch.ops import crc as crc_ops, fec, scramble, slicers
 
     n_info = fec.info_bits_for(code, fmt.payload * 2)
     cadence = max(fmt.separation, 104) + 1
@@ -899,7 +933,10 @@ def plant_chain_stream(fmt, code, crc, rng):
     starts = [(17 + j * cadence) % S for j in range(k_frames)]
     infos = rng.integers(0, 2, (C, k_frames, n_info - crc.degree)).astype(
         np.int8)
-    coded = fec.conv_encode(code, crc_ops.append_crc(crc, infos)).numpy()
+    framed = crc_ops.append_crc(crc, infos)
+    if lfsr is not None:
+        framed = scramble.additive_scramble(lfsr, framed).numpy()
+    coded = fec.conv_encode(code, framed).numpy()
     labels = slicers.bit_labels(4, "gray").astype(np.int64)
     lut = np.zeros(4, np.int64)
     lut[labels[:, 0] + 2 * labels[:, 1]] = np.arange(4)
@@ -919,14 +956,16 @@ def plant_chain_stream(fmt, code, crc, rng):
 
 def chain_phases(torch, dev, card: str, profile) -> dict:
     """Phases 7 and 8b: ChainEngine end to end on the card against the
-    CPU, then its times.  Returns the kernel launch counts of the main
-    path's run."""
+    CPU (and behind build_receiver(engine="chain")), then its times.
+    Returns the kernel launch counts of the main path's run and the
+    engine's infobits/s at depth 0 and 1."""
     from psk_soft_tpu_torch.config import DemodConfig
     from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
     from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
     from psk_soft_tpu_torch.ops.fec import CODE_K7
     from psk_soft_tpu_torch.ops.framesync import FrameFormat
     from psk_soft_tpu_torch.runtime.chain_engine import ChainEngine
+    from psk_soft_tpu_torch.runtime.receiver import build_receiver
 
     cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
                       phase_avg=PHASE_AVG)
@@ -1004,15 +1043,25 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
 
     if key(frames) != key(cpu_frames):
         raise AssertionError("frame lists differ between card and CPU")
+    # The same engine behind the receiver surface gives the same frames.
+    rx = build_receiver(cfg, C, engine="chain", block_symbols=S, uw=fmt.uw,
+                        frame_payload=fmt.payload,
+                        uw_threshold=fmt.threshold, fec=CODE_K7,
+                        fec_labeling="gray", crc=CRC16_CCITT, device=dev)
+    if key(drive(rx.engine)) != key(frames):
+        raise AssertionError("build_receiver(engine='chain') frames differ "
+                             "from ChainEngine's")
     log(json.dumps({"phase": "chain_engine", "channels": C, "symbols": S,
                     "blocks": n_blocks, "frames": len(frames),
                     "frames_required": len(must),
                     "frames_per_block_per_channel": len(starts),
                     "launches": launches, "warmup_symbols":
                     gpu.warmup_symbols, "card_s": gpu_s, "cpu_s": cpu_s,
-                    "equal_to_cpu": True}))
+                    "equal_to_cpu": True,
+                    "receiver_chain_equal_to_engine": True}))
 
     # --- phase 8b: the chain engine's times, depth 0 and 1 ---
+    rates = {}
     for depth in (0, 1):
         eng = engine(dev, depth)
         acc = dict(push=0.0, upload=0.0, chain_enqueue=0.0,
@@ -1046,6 +1095,7 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
             decoded += len(feed(3 + b))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        rates[depth] = decoded * n_info / dt
         log(json.dumps({"phase": "timing", "what": "chain engine end to end",
                         "pipeline_depth": depth, "blocks": n_timed,
                         "frames": decoded, "seconds": dt,
@@ -1058,7 +1108,7 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
             profile(feed, card, "chain engine, depth 0",
                     watch={"viterbi_fused (B2)": B2_KERNEL,
                            "demod_full_tm (B1)": "demod_"})
-    return {"launches": launches}
+    return {"launches": launches, "infobits_per_s": rates}
 
 
 def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
@@ -2643,6 +2693,697 @@ def group_phase(torch, dev, card) -> dict:
     return err
 
 
+# --- phases 20-22: the per-stage bit layer (ROADMAP A.7) -------------------
+
+STREAM_DEPTH = 70             # phase 20's traceback window (10 K at K7)
+STREAM_BLOCKS = 6             # its 512-step blocks
+STREAM_SIDE_ROWS = 256        # rows of its other cases (K9, punctured, ...)
+STREAM_SIGMA = 0.5            # LLR noise: decodes cleanly, ties rare
+PAR_STEPS = 8192              # phase 21: steps a row, ...
+PAR_MARGIN = 70               # ... the windows' margin
+RX_WARM_BLOCKS = 1            # phase 22: warm-up blocks before the kernel
+RX_FRAME_TOL = SOFT_TOL       # frame corr, card vs CPU (B1's soft bound)
+STAGE_TOL = 1e-5              # frame soft/corr, stage on card vs on CPU
+
+
+def stream_steps(code, rows: int, steps: int, seed: int):
+    """Random bits through ``code`` (not terminated) as noisy LLRs: the
+    (rows, L) wire and its (rows, steps, n) depunctured steps (numpy),
+    and the bits."""
+    import torch
+    from psk_soft_tpu_torch.ops import fec
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (rows, steps)).astype(np.int8)
+    coded = fec.conv_encode(code, bits, terminate=False).numpy()
+    wire = ((1.0 - 2.0 * coded) + STREAM_SIGMA * rng.standard_normal(
+        coded.shape)).astype(np.float32)
+    full = fec.depuncture(code, torch.from_numpy(wire)).numpy()
+    return wire, full.reshape(rows, steps, code.n), bits
+
+
+def run_stream(fec, code, steps, depth: int, blocks: int, device,
+               known_start: bool = True, states: bool = False):
+    """The streaming decoder over ``blocks`` equal blocks of the (rows, T,
+    n) steps tensor and a flush: (list of each block's bits and the
+    flush's, list of the carries after each block)."""
+    import torch
+
+    rows, t = steps.shape[0], steps.shape[1] // blocks
+    st = fec.viterbi_stream_init(code, rows, depth, known_start,
+                                 device=device)
+    outs, carries = [], []
+    for b in range(blocks):
+        st, bits = fec.viterbi_stream_step(
+            code, st, steps[:, b * t:(b + 1) * t])
+        outs.append(bits)
+        if states:
+            carries.append(st)
+    outs.append(fec.viterbi_stream_flush(code, st))
+    torch.cuda.synchronize()
+    return outs, carries or [st]
+
+
+def stream_equal(label: str, got, ref) -> float:
+    """Card stream run against the CPU run: each block's bits and the
+    flush equal, each carry's window equal and metrics within PM_TOL with
+    NaN equal.  Returns the metrics' largest error."""
+    import torch
+
+    (g_out, g_st), (r_out, r_st) = got, ref
+    for i, (a, b) in enumerate(zip(g_out, r_out)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{label}: bits of output {i} differ at "
+                                 f"{int((a.cpu() != b).sum())}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(g_st, r_st)):
+        if not torch.equal(a.dec.cpu(), b.dec):
+            raise AssertionError(f"{label}: decision window {i} differs")
+        err = max(err, finite_err(a.pm.cpu(), b.pm))
+    if err > PM_TOL:
+        raise AssertionError(f"{label}: metrics differ by {err}")
+    return err
+
+
+def coded_qpsk(bits_per_row: int, n_ch: int, seed: int):
+    """A continuous K7-coded, Gray-mapped QPSK stream per channel (the
+    phase-7 waveform: one impulse per symbol, rotated 0.4 rad, noise
+    0.01): ((T, C) re, im planes, (C, n) sent bits)."""
+    from psk_soft_tpu_torch.ops import fec, slicers
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (n_ch, bits_per_row)).astype(np.int8)
+    coded = fec.conv_encode(fec.CODE_K7, bits, terminate=False).numpy()
+    labels = slicers.bit_labels(4, "gray").astype(np.int64)
+    lut = np.zeros(4, np.int64)
+    lut[labels[:, 0] + 2 * labels[:, 1]] = np.arange(4)
+    idx = lut[coded[:, 0::2] + 2 * coded[:, 1::2]]
+    x = np.repeat(np.exp(1j * (2 * np.pi * idx / 4 + 0.4)), SPS,
+                  axis=1).astype(np.complex64)
+    x += (0.01 * (rng.standard_normal(x.shape)
+                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    return (np.ascontiguousarray(x.real.T), np.ascontiguousarray(x.imag.T),
+            bits)
+
+
+def stream_fec_phase(torch, dev, card: str, event_ms) -> dict:
+    """Phase 20: the streaming decoder on the card (B3 + B4 a block, B4
+    for the flush) against the plain loops on the CPU, then
+    StreamFecDecoder under build_receiver.  Returns the main path's
+    launches and the kernels line's numbers for B3 and B4 at the
+    streaming shape."""
+    import tempfile
+
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops import fec
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from psk_soft_tpu_torch.runtime.receiver import build_receiver
+    from psk_soft_tpu_torch.utils.build import BUILD_DIR
+    from psk_soft_tpu_torch.utils.checkpoint import load_state, save_state
+
+    code = fec.CODE_K7
+    steps_total = STREAM_BLOCKS * S
+    wire, steps, bits = stream_steps(code, C, steps_total, 20)
+    on_card = torch.from_numpy(steps).to(dev)
+    on_cpu = torch.from_numpy(steps)
+
+    # --- the main path: 1024 streams, 6 blocks and a flush, counted ---
+    vk.viterbi_acs.launches = vk.viterbi_traceback.launches = 0
+    t0 = time.perf_counter()
+    card_run = run_stream(fec, code, on_card, STREAM_DEPTH, STREAM_BLOCKS,
+                          dev, states=True)
+    card_s = time.perf_counter() - t0
+    launches = {"viterbi_acs": vk.viterbi_acs.launches,
+                "viterbi_traceback": vk.viterbi_traceback.launches}
+    if launches != {"viterbi_acs": STREAM_BLOCKS,
+                    "viterbi_traceback": STREAM_BLOCKS + 1}:
+        raise AssertionError(f"stream launches {launches}")
+    t0 = time.perf_counter()
+    cpu_run = run_stream(fec, code, on_cpu, STREAM_DEPTH, STREAM_BLOCKS,
+                         "cpu", states=True)
+    cpu_s = time.perf_counter() - t0
+    pm_err = stream_equal("stream K7", card_run, cpu_run)
+    got = torch.cat(card_run[0], dim=1)[:, STREAM_DEPTH:].cpu()
+    one_shot = fec.viterbi_decode(code, torch.from_numpy(wire).to(dev),
+                                  terminate=False).cpu()
+    if not torch.equal(got, one_shot):
+        raise AssertionError(f"stream vs one-shot: "
+                             f"{int((got != one_shot).sum())} bits differ")
+    bit_errors = int((got.numpy() != bits).sum())
+
+    # --- known_start=False, punctured 2/3, K9 (256 rows, 2 blocks) ---
+    side = {}
+    p23 = fec.ConvCode(7, (0o171, 0o133), fec.PUNCTURE_2_3)
+    for label, c, depth, known in (("unknown_start", code, STREAM_DEPTH,
+                                    False),
+                                   ("punctured_2_3", p23, 96, True),
+                                   ("k9", fec.CODE_K9, 90, True)):
+        _, st2, _ = stream_steps(c, STREAM_SIDE_ROWS, 2 * S, 21)
+        t2 = torch.from_numpy(st2)
+        side[label] = stream_equal(
+            label, run_stream(fec, c, t2.to(dev), depth, 2, dev, known,
+                              states=True),
+            run_stream(fec, c, t2, depth, 2, "cpu", known, states=True))
+
+    # --- a checkpoint saved mid-stream on the card, reloaded, continued ---
+    half = STREAM_BLOCKS // 2
+    st = card_run[1][half - 1]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        save_state(f"{tmp}/stream.npz", st, cfg)
+        st, _, _ = load_state(f"{tmp}/stream.npz", dev)
+    resumed = []
+    for b in range(half, STREAM_BLOCKS):
+        st, out = fec.viterbi_stream_step(code, st,
+                                          on_card[:, b * S:(b + 1) * S])
+        resumed.append(out)
+    resumed.append(fec.viterbi_stream_flush(code, st))
+    if not all(torch.equal(a, b) for a, b in zip(resumed,
+                                                  card_run[0][half:])):
+        raise AssertionError("stream checkpoint: continuation differs")
+    log(json.dumps({"phase": "stream_fec", "rows": C, "blocks": STREAM_BLOCKS,
+                    "steps_a_block": S, "depth": STREAM_DEPTH,
+                    "launches": launches, "pm_max_err": pm_err,
+                    "equal_to_cpu": True, "equal_to_one_shot_after_lag": True,
+                    "bit_errors_vs_sent": bit_errors,
+                    "side_cases_pm_err": side, "checkpoint_equal": True,
+                    "card_s": card_s, "cpu_s": cpu_s, "card": card}))
+    del on_card, card_run, cpu_run
+
+    # --- StreamFecDecoder via build_receiver over the kernel-B1 bank ---
+    n_blocks = 1 + 4
+    re, im, _ = coded_qpsk(n_blocks * S + S // 2, C, 22)
+    need = S * SPS
+
+    def drive(device, width):
+        rx = build_receiver(cfg, width, engine="full", block_symbols=S,
+                            stream_fec=code, fec_labeling="gray",
+                            device=device)
+        for b in range(n_blocks):
+            rx.engine.push_planes(re[b * need:(b + 1) * need, :width],
+                                  im[b * need:(b + 1) * need, :width])
+            rx.engine.step_packets()
+        rx.engine.push_planes(re[n_blocks * need:, :width],
+                              im[n_blocks * need:, :width])
+        rx.engine.flush_packets()
+        torch.cuda.synchronize()
+        return rx.stream_fec.pop_bits(), rx.stream_fec.steps_decoded
+
+    vk.viterbi_acs.launches = vk.viterbi_traceback.launches = 0
+    g_bits, g_steps = drive(dev, C)
+    rx_launches = {"viterbi_acs": vk.viterbi_acs.launches,
+                   "viterbi_traceback": vk.viterbi_traceback.launches}
+    c_bits, c_steps = drive("cpu", CPU_C)
+    if (g_steps != c_steps or not np.array_equal(g_bits[:CPU_C], c_bits)
+            or min(rx_launches.values()) < 1):
+        raise AssertionError(f"StreamFecDecoder: steps {g_steps} vs "
+                             f"{c_steps}, launches {rx_launches}")
+    log(json.dumps({"phase": "stream_fec", "what": "build_receiver("
+                    "stream_fec=CODE_K7) over FullKernelBatchEngine",
+                    "channels": C, "cpu_channels": CPU_C,
+                    "steps_decoded": g_steps, "launches": rx_launches,
+                    "bits_equal_to_cpu": True, "card": card}))
+
+    # --- B3 and B4 at the streaming shape, and the window re-layout ---
+    st = fec.viterbi_stream_init(code, C, STREAM_DEPTH, device=dev)
+    y = torch.from_numpy(steps[:, :S]).to(dev)
+    st, _ = fec.viterbi_stream_step(code, st, y)
+    llr_t = y.permute(2, 1, 0).contiguous()
+    pm0 = st.pm.T.contiguous()
+    exp = vk._signs_on(code, dev)
+    kw = dict(k=code.k, s_count=code.states, n=code.n, t_actual=S)
+    dec_new, pm2 = vk.viterbi_acs(llr_t, pm0, exp, **kw)
+    full = torch.cat([st.dec.permute(0, 2, 1).to(torch.int8), dec_new])
+    start = torch.argmax(pm2, dim=0).to(torch.int32)[None]
+    tb = dict(k=code.k, s_count=code.states, t_actual=STREAM_DEPTH + S)
+
+    def relayout():
+        f = torch.cat([st.dec.permute(0, 2, 1).to(torch.int8), dec_new])
+        return f[S:].permute(0, 2, 1).to(torch.bool).contiguous()
+
+    acs_call = lambda: vk.viterbi_acs(llr_t, pm0, exp, **kw)  # noqa: E731
+    tb_call = lambda: vk.viterbi_traceback(full, start, **tb)  # noqa: E731
+    out = {}
+    k_ms, p_ms = kernel_and_plain_ms(
+        event_ms, acs_call, lambda: vk.viterbi_acs_ref(llr_t, pm0, exp, **kw))
+    dev_ms = [kernel_device_ms(torch, acs_call, B3_KERNEL) for _ in range(2)]
+    # B3 reads the LLRs, the metrics and the signs once and writes the
+    # (T, S, B) decision plane and the metrics.
+    out["viterbi_acs"] = dict(
+        ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=pm_err,
+        ops=S * C * code.states * (4 * code.n + 3),
+        bytes=(llr_t.nbytes + 2 * pm0.nbytes + exp.nbytes
+               + S * code.states * C))
+    log(json.dumps({"phase": "timing", "what": "viterbi_acs (B3) at the "
+                    "streaming shape", "rows": C, "steps": S, "K": code.k,
+                    "kernel_ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                    "plan": vk.launch_plan(code.states, code.n, S, C,
+                                           False)._asdict(), "card": card}))
+    k_ms, p_ms = kernel_and_plain_ms(
+        event_ms, tb_call, lambda: vk.viterbi_traceback_ref(full, start, **tb))
+    dev_ms = [kernel_device_ms(torch, tb_call, B4_KERNEL) for _ in range(2)]
+    t_tb = STREAM_DEPTH + S
+    # The walk reads one decision byte per (step, row) and writes a bit
+    # per (step, row): what this data needs, not the whole plane.
+    out["viterbi_traceback"] = dict(
+        ms=min(k_ms), plain_ms=min(p_ms), max_abs_err=0.0, ops=4 * t_tb * C,
+        bytes=t_tb * C + start.nbytes + t_tb * C)
+    relayout_ms = [event_ms(relayout, [()]) for _ in range(2)]
+    log(json.dumps({"phase": "timing", "what": "viterbi_traceback (B4) at "
+                    "the streaming shape", "rows": C, "steps": t_tb,
+                    "K": code.k, "kernel_ms": k_ms, "device_ms": dev_ms,
+                    "plain_ms": p_ms, "history_relayout_ms": relayout_ms,
+                    "plan": vk.traceback_plan(code.states, C, t_tb)._asdict(),
+                    "card": card}))
+    step_ms = [event_ms(lambda: fec.viterbi_stream_step(code, st, y), [()])
+               for _ in range(2)]
+    log(json.dumps({"phase": "timing", "what": "viterbi_stream_step "
+                    "(B3 + re-layout + B4) per 512-step block",
+                    "rows": C, "ms": step_ms, "card": card}))
+    return {"launches": launches, "kernels": out,
+            "receiver_launches": rx_launches}
+
+
+def parallel_decode_phase(torch, dev, card: str) -> dict:
+    """Phase 21: viterbi_decode_parallel at 1024 rows x 8192 steps, chunk
+    512 (16 windows a row, 16384 rows x 652 steps on B2) and chunk 2048
+    (2188-step windows: B3 + B4), bits equal to the sequential B3 + B4
+    decode on the card and to the CPU (first CPU_C rows).  Returns each
+    chunk's launches."""
+    from psk_soft_tpu_torch.ops import fec
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel as vk
+
+    code = fec.CODE_K7
+    wire, _, bits = stream_steps(code, C, PAR_STEPS, 23)
+    on_card = torch.from_numpy(wire).to(dev)
+    seq = fec.viterbi_decode(code, on_card, terminate=False)
+    out = {}
+    for chunk in (S, 4 * S):
+        for w in (vk.viterbi_fused, vk.viterbi_acs, vk.viterbi_traceback):
+            w.launches = 0
+        t0 = time.perf_counter()
+        got = fec.viterbi_decode_parallel(code, on_card, chunk=chunk,
+                                          margin=PAR_MARGIN)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in (
+            vk.viterbi_fused, vk.viterbi_acs, vk.viterbi_traceback)}
+        span = chunk + 2 * PAR_MARGIN
+        fused = vk.fused_fits(code.states, span)
+        if (launches["viterbi_fused"] if fused
+                else min(launches["viterbi_acs"],
+                         launches["viterbi_traceback"])) < 1:
+            raise AssertionError(f"parallel chunk {chunk}: {launches}")
+        cpu = fec.viterbi_decode_parallel(
+            code, torch.from_numpy(wire[:CPU_C]), chunk=chunk,
+            margin=PAR_MARGIN)
+        if not torch.equal(got, seq) or not torch.equal(got[:CPU_C].cpu(),
+                                                        cpu):
+            raise AssertionError(f"parallel chunk {chunk}: bits differ from "
+                                 f"the sequential decode or the CPU")
+        log(json.dumps({"phase": "parallel_decode", "rows": C,
+                        "steps": PAR_STEPS, "chunk": chunk,
+                        "margin": PAR_MARGIN, "windows": C * -(-PAR_STEPS
+                                                               // chunk),
+                        "span": span, "route": "B2" if fused else "B3+B4",
+                        "launches": launches, "card_s": card_s,
+                        "bit_errors_vs_sent": int(
+                            (got.cpu().numpy() != bits).sum()),
+                        "equal_to_sequential": True, "equal_to_cpu": True,
+                        "card": card}))
+        out[chunk] = launches
+    return out
+
+
+FRAME_FIELDS = ("channel", "start", "rotation", "bits", "info_bits",
+                "corrected", "crc_ok")
+
+
+def frame_rows(frames, n_ch=None):
+    """Sortable (channel, start, rotation, bits, info bits, corrected,
+    crc_ok) rows of a frame list (channels below ``n_ch``)."""
+    return sorted((f.channel, f.start, f.rotation, f.bits.tobytes(),
+                   b"" if f.info_bits is None else f.info_bits.tobytes(),
+                   f.corrected, f.crc_ok)
+                  for f in frames if n_ch is None or f.channel < n_ch)
+
+
+def frames_close(label: str, got, ref, tol: float, n_ch=None,
+                 gate_soft: bool = True) -> dict:
+    """Frame lists equal (channels below ``n_ch``) with correlation values
+    and (``gate_soft``) soft payloads within ``tol``.  Returns the largest
+    errors."""
+    rows_g, rows_r = frame_rows(got, n_ch), frame_rows(ref, n_ch)
+    if rows_g != rows_r:
+        by_key = {r[:2]: r for r in rows_r}
+        diffs = [(r[:2], [name for name, a, b
+                          in zip(FRAME_FIELDS, r, by_key[r[:2]]) if a != b])
+                 for r in rows_g if r[:2] in by_key and by_key[r[:2]] != r]
+        raise AssertionError(
+            f"{label}: frame lists differ: {len(rows_g)} vs {len(rows_r)} "
+            f"frames, {len({r[:2] for r in rows_g} - set(by_key))} only in "
+            f"the first, fields differing in {len(diffs)}: {diffs[:4]}")
+    key = lambda f: (f.start, f.channel)  # noqa: E731
+    a = sorted((f for f in got if n_ch is None or f.channel < n_ch), key=key)
+    b = sorted(ref, key=key)
+    err = {"soft": 0.0, "corr": 0.0}
+    for fa, fb in zip(a, b):
+        err["soft"] = max(err["soft"], float(np.abs(fa.soft - fb.soft).max()))
+        err["corr"] = max(err["corr"], abs(fa.corr - fb.corr))
+    if err["corr"] > tol or (gate_soft and err["soft"] > tol):
+        raise AssertionError(f"{label}: {err} over {tol}")
+    return err
+
+
+def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
+    """Phase 22: NativePlaneBank -> build_receiver(engine="full", UW 32,
+    payload 64, K7 Gray, PRBS15 descrambling, CRC-16) at 1024 channels on
+    the phase-7 cadence, payloads scrambled at the transmitter.  Every
+    planted frame after the warm-up decodes once with the CRC green and
+    exact info bits; the frames equal a 128-channel CPU run of the stack
+    (corr within B1's soft bound; soft logged: near-tie timing picks), the
+    frame-side stages replayed on the CPU from the card's tapped blocks
+    (soft and corr within 1e-5),
+    ChainEngine on the same stream (info bits through the keystream),
+    and the runs at depth 1 and without data ports.  Then the stack's
+    times.  Returns the main run's launches."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops import scramble
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime import crc as rcrc
+    from psk_soft_tpu_torch.runtime import framesync as rfs
+    from psk_soft_tpu_torch.runtime import scramble as rsc
+    from psk_soft_tpu_torch.runtime.chain_engine import ChainEngine
+    from psk_soft_tpu_torch.runtime.fec import FecFrameDecoder
+    from psk_soft_tpu_torch.runtime.native_bank import NativePlaneBank
+    from psk_soft_tpu_torch.runtime.receiver import build_receiver
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rng = np.random.default_rng(12)
+    fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 32)), payload=64, m=4,
+                      threshold=0.7)
+    lfsr = scramble.prbs15()
+    starts, infos, x, n_info = plant_chain_stream(fmt, CODE_K7, CRC16_CCITT,
+                                                  rng, lfsr=lfsr)
+    n_msg = n_info - CRC16_CCITT.degree
+    x_t = np.ascontiguousarray(x.T)               # (S*SPS, C) interleaved
+    del x
+    need = S * SPS
+    n_blocks = 1 + STEADY_BLOCKS
+    wrappers = {"demod_full_tm": demod_kernel.demod_full_tm,
+                "viterbi_fused": viterbi_kernel.viterbi_fused,
+                "viterbi_acs": viterbi_kernel.viterbi_acs,
+                "viterbi_traceback": viterbi_kernel.viterbi_traceback}
+
+    def stack(device, width, depth=0, data_ports=True):
+        return build_receiver(
+            cfg, width, engine="full", block_symbols=S, uw=fmt.uw,
+            frame_payload=fmt.payload, uw_threshold=fmt.threshold,
+            fec=CODE_K7, fec_labeling="gray", descramble=lfsr,
+            crc=CRC16_CCITT, device=device,
+            engine_kwargs=dict(pipeline_depth=depth, data_ports=data_ports))
+
+    def drive(rx, width):
+        block = x_t if width == C else np.ascontiguousarray(x_t[:, :width])
+        bank = NativePlaneBank(width, capacity_samples=4 * need)
+        frames = []
+        for _ in range(n_blocks):
+            bank.push_interleaved(block)
+            re, im, _ = bank.pop_planes(need, timeout=0)
+            rx.engine.push_planes(re, im)
+            rx.engine.step_packets()
+            frames += rx.pop_frames()
+        rx.engine.flush_packets()
+        frames += rx.pop_frames()
+        torch.cuda.synchronize()
+        bank.close()
+        return frames
+
+    # --- the main path on the card, counts read around it ---
+    rx = stack(dev, C)
+    captured = []
+    tap = rx.syncer._observe_engine_out
+
+    def capture(out):
+        soft = rfs.engine_out_soft(out)
+        if soft is not None:
+            captured.append(soft[:CPU_C].cpu())
+        tap(out)
+
+    rx.syncer.engine.set_device_tap(capture)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    frames = drive(rx, C)
+    card_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if min(launches["demod_full_tm"], launches["viterbi_fused"]) \
+            < STEADY_BLOCKS:
+        raise AssertionError(f"receiver launches {launches}")
+
+    # Every frame at a planted offset, once, CRC green, exact info bits;
+    # every planted frame of the steady blocks present.
+    by_off = {s0: j for j, s0 in enumerate(starts)}
+    keys = [(f.channel, f.start) for f in frames]
+    if len(set(keys)) != len(keys):
+        raise AssertionError("receiver: a frame was popped twice")
+    for f in frames:
+        j = by_off.get(f.start % S)
+        if (j is None or not f.crc_ok or f.suspect
+                or not np.array_equal(f.info_bits, infos[f.channel, j])):
+            raise AssertionError(f"receiver frame {(f.channel, f.start)}: "
+                                 f"offset {f.start % S}, CRC {f.crc_ok}")
+    a1 = NUM_AVG - 1
+    must = {(c, b * S + s0) for b in range(1, n_blocks) for s0 in starts
+            for c in range(C) if b * S + s0 + fmt.frame_len <= n_blocks * S
+            - a1}
+    if not must <= set(keys):
+        raise AssertionError(f"receiver: {len(must - set(keys))} planted "
+                             f"frames missed")
+
+    # --- the stack on the CPU, and its stages replayed on the CPU ---
+    t0 = time.perf_counter()
+    cpu_frames = drive(stack("cpu", CPU_C), CPU_C)
+    cpu_s = time.perf_counter() - t0
+    # The rectangular pulses of this waveform give every sample of a
+    # symbol the same energy but for the noise, so B1 and its plain
+    # version may pick another sample at a near tie (PERF.md): the frame
+    # lists, bits and corr are held here, the soft payloads only by the
+    # stage replay below.
+    err_cpu = frames_close("receiver vs CPU", frames, cpu_frames,
+                           RX_FRAME_TOL, CPU_C, gate_soft=False)
+    sync = rfs.FrameSyncer(CPU_C, fmt, device="cpu")
+    tail = rcrc.FrameCrcChecker(rsc.FrameDescrambler(
+        FecFrameDecoder(sync, CODE_K7, labeling="gray", device="cpu"), lfsr,
+        device="cpu"), CRC16_CCITT, device="cpu")
+    replayed = []
+    for soft in captured:
+        sync.observe_device(soft)
+        replayed += tail.pop_frames()
+    sync.finalize()
+    replayed += tail.pop_frames()
+    err_stage = frames_close("receiver stages vs CPU", frames, replayed,
+                             STAGE_TOL, CPU_C)
+
+    # --- ChainEngine on the same stream: the same frames after the
+    # warm-up block, info bits through the keystream (the chain does not
+    # descramble, so its CRCs fail) ---
+    chain = ChainEngine(cfg, C, fmt, CODE_K7, CRC16_CCITT, block_symbols=S,
+                        device=dev)
+    re_p = np.ascontiguousarray(x_t.real)
+    im_p = np.ascontiguousarray(x_t.imag)
+    for _ in range(n_blocks):
+        chain.push_planes(re_p, im_p)
+        chain.step()
+    chain.flush()
+    chain_frames = chain.pop_frames()
+    ks = scramble.keystream(lfsr, n_info)[:n_msg].astype(np.int8)
+    ours = {(f.channel, f.start): f for f in frames}
+    for f in chain_frames:
+        g = ours.get((f.channel, f.start))
+        if g is None or not np.array_equal(f.info_bits ^ ks, g.info_bits):
+            raise AssertionError(f"chain frame {(f.channel, f.start)} not "
+                                 f"in the receiver's frames")
+    chain_keys = {(f.channel, f.start) for f in chain_frames}
+    extra = [k for k in ours if k not in chain_keys]
+    if any(start >= S for _, start in extra):
+        raise AssertionError("receiver frames past the warm-up block that "
+                             "the chain lacks")
+
+    # --- pipelined assembly and no data ports: the same frames ---
+    variants = {}
+    for depth, ports in ((1, True), (0, False), (1, False)):
+        got = drive(stack(dev, C, depth, ports), C)
+        variants[f"depth{depth}_ports{int(ports)}"] = len(got)
+        if frame_rows(got) != frame_rows(frames):
+            raise AssertionError(f"receiver depth {depth} data_ports "
+                                 f"{ports}: frames differ")
+    log(json.dumps({"phase": "receiver", "channels": C, "blocks": n_blocks,
+                    "frames": len(frames), "frames_required": len(must),
+                    "launches": launches, "max_err_vs_cpu": err_cpu,
+                    "stage_max_err_vs_cpu": err_stage,
+                    "chain_frames": len(chain_frames),
+                    "warmup_block_frames_chain_drops": len(extra),
+                    "variants_frames": variants, "card_s": card_s,
+                    "cpu_s": cpu_s, "card": card}))
+
+    # --- times: frames only (data_ports off), depth 0 and 1 ---
+    for depth in (0, 1):
+        rx = stack(dev, C, depth, False)
+        bank = NativePlaneBank(C, capacity_samples=4 * need)
+        eng, syncer, fec_stage = rx.syncer.engine, rx.syncer, rx.fec
+        acc = dict.fromkeys(("bank", "engine", "sync_scan_fetch", "extract",
+                             "viterbi_drain", "descramble_crc", "sync_total",
+                             "pop_total"), 0.0)
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                acc[name] += time.perf_counter() - t
+                return r
+            return run
+
+        saved = [(rfs, "detect_uw_sparse"), (rfs, "extract_heads"),
+                 (rsc, "additive_scramble"), (rcrc, "check_crc")]
+        saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+        rfs.detect_uw_sparse = timed("sync_scan_fetch", rfs.detect_uw_sparse)
+        rfs.extract_heads = timed("extract", rfs.extract_heads)
+        rsc.additive_scramble = timed("descramble_crc",
+                                      rsc.additive_scramble)
+        rcrc.check_crc = timed("descramble_crc", rcrc.check_crc)
+        eng._step_core = timed("engine", eng._step_core)
+        eng.set_device_tap(timed("sync_total", syncer._observe_engine_out))
+        fec_stage.decode_payloads = timed("viterbi_drain",
+                                          fec_stage.decode_payloads)
+        pop = timed("pop_total", rx.pop_frames)
+
+        def feed(_b):
+            t = time.perf_counter()
+            bank.push_interleaved(x_t)
+            re, im, _ = bank.pop_planes(need, timeout=0)
+            acc["bank"] += time.perf_counter() - t
+            rx.engine.push_planes(re, im)
+            rx.engine.step_packets()
+            return pop()
+
+        for b in range(3):                  # warm-up + hand-off + 1 steady
+            feed(b)
+        torch.cuda.synchronize()
+        acc = dict.fromkeys(acc, 0.0)
+        n_timed, decoded = 20, 0
+        t0 = time.perf_counter()
+        for b in range(n_timed):
+            decoded += len(feed(3 + b))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        host = {k: v * 1e3 / n_timed for k, v in acc.items()}
+        host["frame_assembly"] = (
+            host["sync_total"] - host["sync_scan_fetch"] - host["extract"]
+            + host["pop_total"] - host["viterbi_drain"]
+            - host["descramble_crc"])
+        log(json.dumps({"phase": "timing", "what": "per-stage receiver end "
+                        "to end (frames only)", "pipeline_depth": depth,
+                        "blocks": n_timed, "frames": decoded,
+                        "seconds": dt,
+                        "infobits_per_s": decoded * n_info / dt,
+                        "samples_per_s": n_timed * need * C / dt,
+                        "chain_engine_infobits_per_s": chain_rate[depth],
+                        "host_ms_per_block": host, "card": card}))
+        if depth == 0:
+            profile(feed, card, "per-stage receiver, depth 0",
+                    watch={"demod_full_tm (B1)": "demod_",
+                           "viterbi_fused (B2)": B2_KERNEL})
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        bank.close()
+    return launches
+
+
+def group_sync_phase(torch, dev, card: str) -> int:
+    """Phase 22 (groups): GroupFrameSyncer over the config-4
+    MixedKernelBatchEngine at 1024 channels (M per channel; differential
+    off, so each UW sits in symbol space), uncoded UW-led frames at each
+    channel's M: every frame at a planted offset with exact bits, every
+    planted frame of the steady blocks found, and the frame list equal to
+    a 128-channel CPU run.  Returns the frames found."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models.mixed import MixedParams
+    from psk_soft_tpu_torch.ops import slicers
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat, psk_points
+    from psk_soft_tpu_torch.runtime.engine_mixed import MixedKernelBatchEngine
+    from psk_soft_tpu_torch.runtime.framesync import GroupFrameSyncer
+
+    cfg = DemodConfig(**CFG4)
+    ms, _ = mixed_modes(C)
+    diffs = np.zeros(C, bool)
+    rng = np.random.default_rng(24)
+    fmts = {m: FrameFormat(uw=tuple(int(v) for v in rng.integers(0, m, 32)),
+                           payload=48, m=int(m), threshold=0.7)
+            for m in (2, 4, 8)}
+    fl = fmts[2].frame_len
+    starts = [(23 + j * (fl + 41)) % S for j in range(S // (fl + 41))]
+    idx = rng.integers(0, 8, (C, S)) % ms[:, None]
+    want = {}
+    for c in range(C):
+        fmt = fmts[int(ms[c])]
+        nb = int(np.log2(fmt.m))
+        for s0 in starts:
+            cols = (s0 + np.arange(fl)) % S
+            idx[c, cols[:fmt.uw_len]] = fmt.uw
+            pay = idx[c, cols[fmt.uw_len:]]
+            want[(c, s0)] = slicers.slice_bits(fmt.m, torch.from_numpy(
+                psk_points(pay, fmt.m)))[..., :nb].reshape(-1).numpy()
+    x = np.zeros((C, S * SPS), np.complex64)
+    x[:, 2::SPS] = np.exp(2j * np.pi * idx / ms[:, None])
+    x += (0.01 * rng.standard_normal(x.shape)).astype(np.complex64)
+    re, im = np.ascontiguousarray(x.real.T), np.ascontiguousarray(x.imag.T)
+    del x
+    n_blocks = 1 + 4
+
+    def drive(device, width):
+        eng = MixedKernelBatchEngine(
+            MixedParams.make(ms[:width], diffs[:width], device), cfg, width,
+            block_symbols=S, device=device)
+        top = GroupFrameSyncer(eng, [fmts[int(m)] for m in ms[:width]],
+                               device=device)
+        frames = []
+        for _ in range(n_blocks):
+            top.push_planes(re[:, :width].copy(), im[:, :width].copy())
+            top.step_packets()
+            frames += top.pop_frames()
+        top.flush_packets()
+        torch.cuda.synchronize()
+        return frames + top.pop_frames()
+
+    frames = drive(dev, C)
+    for f in frames:
+        key = (f.channel, f.start % S)
+        if key not in want or not np.array_equal(f.bits, want[key]):
+            raise AssertionError(f"group frame {(f.channel, f.start)}: "
+                                 f"unplanted or bits wrong")
+    got = {(f.channel, f.start) for f in frames}
+    a1 = cfg.num_avg - 1
+    must = {(c, b * S + s0) for b in range(1, n_blocks) for s0 in starts
+            for c in range(C) if b * S + s0 + fl <= n_blocks * S - a1}
+    if len(got) != len(frames) or not must <= got:
+        raise AssertionError(f"group: {len(must - got)} planted frames "
+                             f"missed")
+    err = frames_close("group vs CPU", frames, drive("cpu", CPU_C),
+                       RX_FRAME_TOL, CPU_C)
+    log(json.dumps({"phase": "group_sync", "channels": C,
+                    "cpu_channels": CPU_C, "frames": len(frames),
+                    "frames_required": len(must), "max_err_vs_cpu": err,
+                    "card": card}))
+    return len(frames)
+
+
 def main() -> int:
     import torch
 
@@ -2921,13 +3662,24 @@ def main() -> int:
                     "batch_ff_samples_per_s": bank17["ff_samples_per_s"],
                     **stream18, "group_max_err_vs_cpu": group19,
                     "card": card}))
+    stream20 = stream_fec_phase(torch, dev, card, event_ms)
+    parallel21 = parallel_decode_phase(torch, dev, card)
+    receiver22 = receiver_phase(torch, dev, card, profile_engine,
+                                chain["infobits_per_s"])
+    group22 = group_sync_phase(torch, dev, card)
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},
                     "config3_int16_engine": c3,
                     "mixed_engine": {"demod_full_tm[mixed]": mixed_launches},
                     "chain_acquire_cfo": acq,
-                    "long_trellis_decode": long_launches}))
+                    "long_trellis_decode": long_launches,
+                    "stream_fec": stream20["launches"],
+                    "stream_fec_receiver": stream20["receiver_launches"],
+                    "parallel_decode": {f"chunk_{k}": v
+                                        for k, v in parallel21.items()},
+                    "receiver_full": receiver22,
+                    "group_sync_frames": group22}))
 
     # --- the kernels line ---
     t = timings[False]
@@ -2970,12 +3722,13 @@ def main() -> int:
                          bytes=t["bytes"], ops=t["ops"],
                          library_ms=(min(t["library_ms"]) if t["library_ms"]
                                      else None)))
-    # B2 runs on the chain path; B3 and B4 on the long-trellis decode.
+    # B2 runs on the chain path, timed at its shape; B3 and B4 on the
+    # streaming decoder's path (phase 20), timed at its shape.
     path_launches = {"viterbi_fused": chain["launches"]["viterbi_fused"],
-                     **long_launches}
+                     **stream20["launches"]}
     for name, line in (("viterbi_fused", 312), ("viterbi_acs", 349),
                        ("viterbi_traceback", 391)):
-        v = vit[name]
+        v = stream20["kernels"].get(name, vit[name])
         rows.append(dict(
             name=name, source="viterbi.cu",
             replaces=f"psk_soft_tpu/ops/pallas/viterbi_kernel.py:{line}",

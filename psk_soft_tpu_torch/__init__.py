@@ -15,8 +15,11 @@ the flagship bank engine (``runtime/engine_full.FullKernelBatchEngine``,
 with configure, checkpoint restore and the non-finite guard) and the mixed
 bank (``runtime/engine_mixed``), the receive chain
 (``runtime/chain_engine.ChainEngine``, with carrier acquisition), the fused
-pipeline (``models/fused``), and the golden-vector generator and
-reference oracle (``testing/``).
+pipeline (``models/fused``), the per-stage bit layer
+(``runtime/receiver.build_receiver`` over ``runtime/{framesync,fec,
+scramble,crc}``, and the streaming and time-parallel Viterbi decoders of
+``ops/fec``), and the golden-vector generator and reference oracle
+(``testing/``).
 """
 
 from .config import DemodConfig

@@ -119,14 +119,14 @@ def append_crc(spec: CrcSpec, bits) -> np.ndarray:
     return np.concatenate([b, crc], axis=-1)
 
 
-def check_crc(spec: CrcSpec, bits):
-    """(..., L+degree) received bits -> ((..., L) message, (...,) ok),
-    numpy in and out."""
-    b = np.asarray(bits, np.int8)
+def check_crc(spec: CrcSpec, bits, device=None):
+    """(..., L+degree) received bits -> ((..., L) message, (...,) ok) as
+    numpy.  The CRC is computed on ``device``: by default the device of
+    ``bits`` when it is a tensor, else the CPU."""
+    b = torch.as_tensor(bits, device=device).to(torch.int8)
     d = spec.degree
     if b.shape[-1] <= d:
         raise ValueError(f"need more than {d} bits (message + CRC)")
-    msg, field = b[..., :-d], b[..., -d:]
-    got = crc_bits(spec, msg).numpy()
-    ok = np.all(got == field, axis=-1)
-    return msg, ok
+    msg = b[..., :-d]
+    ok = (crc_bits(spec, msg) == b[..., -d:]).all(dim=-1)
+    return msg.cpu().numpy(), ok.cpu().numpy()

@@ -1,5 +1,5 @@
 """Forward error correction: convolutional codes, max-log PSK LLRs and
-Viterbi decoding (port of ``psk_soft_tpu/ops/fec.py:58-330, 561-670``).
+Viterbi decoding (port of ``psk_soft_tpu/ops/fec.py``).
 
 Conventions (as in the JAX package):
 
@@ -15,24 +15,24 @@ Conventions (as in the JAX package):
 :func:`viterbi_decode` dispatches on the device of its input: a CPU tensor
 runs the plain decoder here (:func:`_viterbi`, the JAX package's scan as a
 loop over steps); a CUDA tensor goes to the hand-written kernels
-(``ops/cuda/viterbi_kernel.viterbi_decode_kernel``).  The streaming and
-time-parallel decoders wait for ROADMAP A.7.
+(``ops/cuda/viterbi_kernel.viterbi_decode_kernel``).  The streaming decoder
+(:func:`viterbi_stream_step`, :func:`viterbi_stream_flush`, port of
+``psk_soft_tpu/ops/fec.py:331-431``) and the time-parallel one
+(:func:`viterbi_decode_parallel`, ``:433-512``) dispatch the same way: a
+CUDA tensor runs kernels B3 and B4 (B2 for the parallel windows that fit
+it), a CPU tensor the plain loops here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 _MAX_K = 10          # 512 states
-
-
-def _later(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP: A.7, the "
-                      f"per-stage bit layer)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,20 +206,16 @@ def _trellis(code: ConvCode):
     return pred.astype(np.int32), exp
 
 
-def _viterbi(llrs: torch.Tensor, exp_sign: torch.Tensor, k: int,
-             s_count: int, terminate: bool) -> torch.Tensor:
-    """Plain decoder: (B, T, n) LLRs -> (B, T) int8 bits (flush bits
-    included).  The JAX package's ``_viterbi`` scan as a loop over steps:
-    butterfly ACS (states s' and s' + S/2 share the predecessor pair
-    {2j, 2j+1}), strict ``>`` (a tie keeps predecessor 0), re-zero against
-    state 0's metric; traceback from state 0 (terminate) or the first
-    maximum."""
-    b, t, _ = llrs.shape
-    dev = llrs.device
-    pm = torch.full((b, s_count), -1e9, dtype=torch.float32, device=dev)
-    pm[:, 0] = 0.0
+def _acs_scan(llrs: torch.Tensor, pm: torch.Tensor, exp_sign: torch.Tensor,
+              s_count: int):
+    """The ACS recursion of the JAX package's ``_make_acs`` over (B, T, n)
+    LLRs from (B, S) metrics: butterfly ACS (states s' and s' + S/2 share
+    the predecessor pair {2j, 2j+1}), strict ``>`` (a tie keeps
+    predecessor 0), re-zero against state 0's metric.  Returns (final
+    metrics, list of T (B, S) bool decisions)."""
+    b = llrs.shape[0]
     decs = []
-    for step in range(t):
+    for step in range(llrs.shape[1]):
         r = llrs[:, step]                                   # (B, n)
         bm = (r[:, None, None, :] * exp_sign[None]).sum(-1)  # (B, S, 2)
         pairs = pm.reshape(b, s_count // 2, 2)
@@ -228,14 +224,41 @@ def _viterbi(llrs: torch.Tensor, exp_sign: torch.Tensor, k: int,
         new = torch.where(dec, cand[..., 1], cand[..., 0])
         pm = new - new[:, 0:1]
         decs.append(dec)
-    s = (torch.zeros(b, dtype=torch.int64, device=dev) if terminate
-         else torch.argmax(pm, dim=1))
-    bits = torch.empty((b, t), dtype=torch.int8, device=dev)
-    for step in range(t - 1, -1, -1):
+    return pm, decs
+
+
+def _walk(decs, start: torch.Tensor, k: int, s_count: int) -> torch.Tensor:
+    """Survivor walk (the JAX package's ``_make_back``) from (B,) start
+    states back over decs[t] (B, S) -> (B, T) int8 bits."""
+    s = start.to(torch.int64)
+    bits = torch.empty((s.shape[0], len(decs)), dtype=torch.int8,
+                       device=s.device)
+    for step in range(len(decs) - 1, -1, -1):
         bits[:, step] = ((s >> (k - 2)) & 1).to(torch.int8)
         p = torch.gather(decs[step], 1, s[:, None])[:, 0]
         s = ((s << 1) & (s_count - 1)) | p.to(torch.int64)
     return bits
+
+
+def _pinned(b: int, s_count: int, device) -> torch.Tensor:
+    """(B, S) metrics pinned to state 0 (encoder reset)."""
+    pm = torch.full((b, s_count), -1e9, dtype=torch.float32, device=device)
+    pm[:, 0] = 0.0
+    return pm
+
+
+def _viterbi(llrs: torch.Tensor, exp_sign: torch.Tensor, k: int,
+             s_count: int, terminate: bool) -> torch.Tensor:
+    """Plain decoder: (B, T, n) LLRs -> (B, T) int8 bits (flush bits
+    included).  The JAX package's ``_viterbi`` scan as a loop over steps
+    (:func:`_acs_scan` from state 0); traceback from state 0 (terminate)
+    or the first maximum."""
+    b = llrs.shape[0]
+    pm, decs = _acs_scan(llrs, _pinned(b, s_count, llrs.device), exp_sign,
+                         s_count)
+    start = (torch.zeros(b, dtype=torch.int64, device=llrs.device)
+             if terminate else torch.argmax(pm, dim=1))
+    return _walk(decs, start, k, s_count)
 
 
 def viterbi_decode(code: ConvCode, llrs, terminate: bool = True):
@@ -274,25 +297,188 @@ def make_viterbi_fn(code: ConvCode, terminate: bool = True):
     return functools.partial(viterbi_decode, code, terminate=terminate)
 
 
-def viterbi_stream_init(*args, **kwargs):
-    raise _later("the streaming Viterbi decoder (viterbi_stream_init)")
+class ViterbiStreamState(NamedTuple):
+    """Carry of the windowed streaming decoder, in the JAX package's
+    layout, so checkpoints cross between the packages."""
+
+    pm: torch.Tensor       # (B, S) float32 path metrics
+    dec: torch.Tensor      # (D, B, S) bool decision window, oldest first
 
 
-def viterbi_stream_step(*args, **kwargs):
-    raise _later("the streaming Viterbi decoder (viterbi_stream_step)")
+def viterbi_stream_init(code: ConvCode, batch: int, depth: int,
+                        known_start: bool = True,
+                        device="cuda") -> ViterbiStreamState:
+    """Fresh streaming-decoder carry on ``device``.
+
+    ``depth`` is the traceback window D in trellis steps (use >= 8-10
+    constraint lengths; emitted bits lag the input by D steps and the
+    first D emitted bits are pre-stream garbage the caller discards --
+    runtime/fec.StreamFecDecoder handles both).  ``known_start`` pins the
+    initial state to 0 (encoder reset); False starts uniform (mid-stream
+    pickup, converges within the window).
+    """
+    if depth < code.k:
+        raise ValueError(f"traceback depth {depth} below the constraint "
+                         f"length {code.k}")
+    s_count = code.states
+    pm = (_pinned(batch, s_count, device) if known_start else
+          torch.zeros((batch, s_count), dtype=torch.float32, device=device))
+    return ViterbiStreamState(
+        pm=pm, dec=torch.zeros((depth, batch, s_count), dtype=torch.bool,
+                               device=device))
 
 
-def viterbi_stream_flush(*args, **kwargs):
-    raise _later("the streaming Viterbi decoder (viterbi_stream_flush)")
+def _stream_block_kernels(code: ConvCode, state: ViterbiStreamState,
+                          y: torch.Tensor):
+    """The stream block on the kernels (the twin of the JAX package's
+    ``_stream_block_planes``): B3 over the T new steps from the carried
+    metrics, B4 over [history | new decisions] from the best state.  The
+    kernels take any B, so no row padding."""
+    from .cuda.viterbi_kernel import _signs_on, viterbi_acs, viterbi_traceback
+
+    b, t, n = y.shape
+    d = state.dec.shape[0]
+    kw = dict(k=code.k, s_count=code.states)
+    dec_new, pm2 = viterbi_acs(
+        y.permute(2, 1, 0).contiguous(), state.pm.T.contiguous(),
+        _signs_on(code, y.device), n=n, t_actual=t, **kw)   # (T, S, B)
+    # A fresh (D+T, S, B) plane: torch.cat allocates it aligned.
+    full = torch.cat([state.dec.permute(0, 2, 1).to(torch.int8), dec_new])
+    start = torch.argmax(pm2, dim=0).to(torch.int32)[None]
+    bits = viterbi_traceback(full, start, t_actual=d + t, **kw)
+    return (ViterbiStreamState(
+                pm=pm2.T.contiguous(),
+                dec=full[t:].permute(0, 2, 1).to(torch.bool).contiguous()),
+            bits[:t].T.contiguous())
 
 
-def viterbi_decode_parallel(*args, **kwargs):
-    raise _later("the time-parallel Viterbi decoder "
-                 "(viterbi_decode_parallel)")
+def _stream_tail_kernel(code: ConvCode,
+                        state: ViterbiStreamState) -> torch.Tensor:
+    """The flush on B4: the (D, S, B) window walked from the best state."""
+    from .cuda.viterbi_kernel import viterbi_traceback
+
+    bits = viterbi_traceback(
+        state.dec.permute(0, 2, 1).to(torch.int8).contiguous(),
+        torch.argmax(state.pm, dim=1).to(torch.int32)[None], k=code.k,
+        s_count=code.states, t_actual=state.dec.shape[0])
+    return bits.T.contiguous()
 
 
-def make_stream_soft_fn(*args, **kwargs):
-    raise _later("the streaming soft FEC step (make_stream_soft_fn)")
+def viterbi_stream_step(code: ConvCode, state: ViterbiStreamState, llrs):
+    """Feed (B, T, n) soft steps; returns (state', (B, T) int8 delayed
+    bits).
+
+    Emitted bit t of this call decodes the trellis step D positions
+    before it (D = window depth): the caller sees the stream shifted by
+    D steps.  Puncturing: depuncture before calling (period-aligned
+    blocks need no phase carry).  A CUDA tensor runs kernels B3 and B4, a
+    CPU tensor the plain loops; the carry is the same either way.
+    """
+    y = torch.as_tensor(llrs).to(device=state.pm.device, dtype=torch.float32)
+    if y.ndim != 3 or y.shape[-1] != code.n:
+        raise ValueError(f"expected (B, T, {code.n}) LLR steps; "
+                         f"got {tuple(y.shape)}")
+    b, t, _ = y.shape
+    if t == 0:
+        return state, torch.zeros((b, 0), dtype=torch.int8, device=y.device)
+    if y.device.type == "cuda":
+        return _stream_block_kernels(code, state, y)
+    if y.device.type != "cpu":
+        raise ValueError(f"unsupported device {y.device}")
+    _, exp_sign = _trellis(code)
+    pm, decs = _acs_scan(y, state.pm, torch.as_tensor(exp_sign), code.states)
+    full = list(state.dec.unbind(0)) + decs                 # D+T of (B, S)
+    bits = _walk(full, torch.argmax(pm, dim=1), code.k, code.states)
+    return ViterbiStreamState(pm=pm, dec=torch.stack(full[t:])), bits[:, :t]
+
+
+def viterbi_stream_flush(code: ConvCode,
+                         state: ViterbiStreamState) -> torch.Tensor:
+    """End of stream: decode the (B, D) bits still inside the window,
+    walked back from the best state (B4 on a CUDA carry)."""
+    if state.pm.device.type == "cuda":
+        return _stream_tail_kernel(code, state)
+    return _walk(list(state.dec.unbind(0)), torch.argmax(state.pm, dim=1),
+                 code.k, code.states)
+
+
+def viterbi_decode_parallel(code: ConvCode, llrs, chunk: int = 512,
+                            margin: int | None = None) -> torch.Tensor:
+    """Time-parallel Viterbi: overlap-save over the trellis.
+
+    The T steps split into P chunks; each gets a ``margin``-step lead-in
+    (the metrics converge to the true survivors within the survivor-merge
+    depth) and a ``margin``-step tail (the traceback from the chunk end
+    converges back within the same depth), and every chunk decodes as a
+    row of one batch of ``chunk + 2*margin``-step windows: B2 when the
+    span fits it, else B3 + B4 (the plain decoder on a CPU tensor).  With
+    margin >= ~10 constraint lengths the output equals the sequential
+    decode.
+
+    Args:
+      llrs: (..., L) soft code bits (punctured ok), terminate=False
+        semantics.
+      chunk: steps decoded per parallel chunk.
+      margin: two-sided overlap in steps (default 10 * K).
+
+    Returns:
+      (..., T) int8 decoded bits.
+    """
+    if margin is None:
+        margin = 10 * code.k
+    y = depuncture(code, torch.as_tensor(llrs).to(torch.float32))
+    length = y.shape[-1]
+    if length % code.n:
+        raise ValueError(f"LLR length {length} not a multiple of "
+                         f"n={code.n}")
+    t = length // code.n
+    lead = y.shape[:-1]
+    steps = y.reshape(-1, t, code.n)
+    b = steps.shape[0]
+    if chunk < 1 or margin < code.k:
+        raise ValueError("need chunk >= 1 and margin >= K")
+    if t <= chunk + 2 * margin:
+        return viterbi_decode(code, llrs, terminate=False)
+    p = -(-t // chunk)                           # chunks
+    span = chunk + 2 * margin
+    # Window p covers steps [p*chunk - margin, p*chunk + chunk + margin).
+    # Leading pad: strong bit-0 LLRs (the all-zero path reproduces the
+    # encoder's zero start, the pin of the sequential decode); trailing
+    # pad: zero LLRs (erasures).
+    pad_hi = p * chunk + margin - t
+    padded = torch.cat([
+        torch.full((b, margin, code.n), 1e4, dtype=torch.float32,
+                   device=y.device),
+        steps,
+        torch.zeros((b, pad_hi, code.n), dtype=torch.float32,
+                    device=y.device)], dim=1)
+    wins = padded.unfold(1, span, chunk)         # (B, P, n, span)
+    wins = wins.permute(0, 1, 3, 2).reshape(b * p, span * code.n)
+    # The windows are depunctured already: decode them with the
+    # unpunctured code, every row pinned at state 0 (the margin lead-in
+    # re-converges the rows past the head).
+    bits = viterbi_decode(ConvCode(code.k, code.polys), wins,
+                          terminate=False)       # (B*P, span)
+    bits = bits.reshape(b, p, span)[:, :, margin:margin + chunk]
+    bits = bits.reshape(b, p * chunk)[:, :t]
+    return bits.reshape(lead + (t,))
+
+
+def make_stream_soft_fn(code: ConvCode, m: int, labeling: str = "scd"):
+    """fn(state, soft) -> (state', bits): the whole streaming-FEC block
+    (constellation LLRs -> depuncture -> ACS -> windowed traceback) on
+    the soft tensor's device.  ``soft`` (B, S_sym) must carry a whole
+    number of puncture-period- and symbol-aligned trellis steps;
+    runtime/fec.StreamFecDecoder does the chunk bookkeeping."""
+
+    def step(state: ViterbiStreamState, soft):
+        soft = torch.as_tensor(soft)
+        llr = psk_llrs(m, soft, labeling=labeling)       # (B, S_sym, nb)
+        full = depuncture(code, llr.reshape(soft.shape[0], -1))
+        return viterbi_stream_step(
+            code, state, full.reshape(soft.shape[0], -1, code.n))
+
+    return step
 
 
 # -- constellation LLRs -------------------------------------------------------

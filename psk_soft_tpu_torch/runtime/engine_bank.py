@@ -195,9 +195,20 @@ class _PipelinedPackets:
         self._pipe_depth = int(depth)
         self._pending: list = []     # device outputs not yet assembled
         self._held: list = []        # assembled packets not yet returned
+        self._device_tap_fn = None
         self.port_stats: dict = {}   # per-output-port PortStats
 
+    def set_device_tap(self, fn) -> None:
+        """Register an observer called with each raw block output
+        (TMOutputs or channel-major DemodOutputs, still on the engine's
+        device) right before packet assembly fetches it, so a downstream
+        stage (runtime/framesync.FrameSyncer) reads the kernel's planes
+        without a plane-sized host transfer.  One slot; None clears it."""
+        self._device_tap_fn = fn
+
     def _emit(self, out, eos: bool = False) -> dict[str, Packet]:
+        if out is not None and self._device_tap_fn is not None:
+            self._device_tap_fn(out)
         if isinstance(out, TMOutputs):
             pkts = self.assembler.assemble_tm(out, eos=eos)
         else:

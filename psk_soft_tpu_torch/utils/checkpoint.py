@@ -29,7 +29,6 @@ from ..config import DemodConfig
 # Classes of the JAX package the port has not ported yet.
 _LATER = {
     "EqState": "A.8, front ends (equalizer)",
-    "ViterbiStreamState": "A.7, the streaming Viterbi decoder",
 }
 
 
@@ -40,11 +39,13 @@ def _registry() -> dict:
     from ..models.full import FullState
     from ..models.fused import FusedState
     from ..ops.agc import AgcState
+    from ..ops.fec import ViterbiStreamState
     from ..state import DemodState
 
     return {cls.__name__: cls for cls in (
         DemodState, FFState, SymbolBackendState, FusedState, FullState,
-        AgcState, SeamTailState, ChainState, FrontState, FrontChainState)}
+        AgcState, SeamTailState, ChainState, FrontState, FrontChainState,
+        ViterbiStreamState)}
 
 
 def _state_class(name: str):

@@ -24,7 +24,7 @@ from ..models.fused import FusedState
 from ..models.mixed import MixedParams
 from ..ops.agc import AgcConfig, AgcState
 from ..ops.crc import CrcSpec
-from ..ops.fec import ConvCode
+from ..ops.fec import ConvCode, ViterbiStreamState
 from ..ops.framesync import FrameFormat
 from ..state import DemodState
 
@@ -88,6 +88,18 @@ def ff_state_to_numpy(state: FFState) -> dict:
 
 
 def full_state_to_numpy(state: FullState) -> dict:
+    return _to_numpy(state)
+
+
+def viterbi_stream_state_from_numpy(arrays: Mapping,
+                                    device) -> ViterbiStreamState:
+    """The streaming decoder's carry on ``device`` from a mapping of its
+    fields ((B, S) float32 pm, (D, B, S) bool dec; e.g. the JAX
+    ViterbiStreamState's fields as numpy)."""
+    return _from_numpy(ViterbiStreamState, arrays, device)
+
+
+def viterbi_stream_state_to_numpy(state: ViterbiStreamState) -> dict:
     return _to_numpy(state)
 
 

@@ -276,20 +276,27 @@ def test_pre_r5_flat_format_loads(tmp_path):
 
 
 def test_unported_classes_raise(tmp_path):
-    """A JAX checkpoint of a class not ported yet raises, naming its
-    ROADMAP step; a JAX int16-window FullState loads as int16 and restores
-    into an int16-ingest engine, whose carry then equals the JAX one (an
-    engine without ingest_scale refuses it)."""
+    """A JAX checkpoint of a class not ported yet (EqState) raises, naming
+    its ROADMAP step; a JAX ViterbiStreamState (ported now) loads with its
+    leaves, dtypes and layout kept; a JAX int16-window FullState loads as
+    int16 and restores into an int16-ingest engine, whose carry then
+    equals the JAX one (an engine without ingest_scale refuses it)."""
     from psk_soft_tpu.ops.equalizer import EqConfig, eq_init
     from psk_soft_tpu.ops.fec import viterbi_stream_init
 
     jcfg = JaxDemodConfig(**KW)
-    for st, step in ((eq_init(EqConfig(taps=5), (2,)), "A.8"),
-                     (viterbi_stream_init(JAX_K7, 2, 40), "A.7")):
-        path = os.path.join(tmp_path, f"{type(st).__name__}.npz")
-        jckpt.save_state(path, st, jcfg)
-        with pytest.raises(ValueError, match=f"ROADMAP: {step}"):
-            checkpoint.load_state(path, "cpu")
+    st = eq_init(EqConfig(taps=5), (2,))
+    path = os.path.join(tmp_path, "EqState.npz")
+    jckpt.save_state(path, st, jcfg)
+    with pytest.raises(ValueError, match="ROADMAP: A.8"):
+        checkpoint.load_state(path, "cpu")
+    jvs = viterbi_stream_init(JAX_K7, 2, 40, known_start=False)
+    path = os.path.join(tmp_path, "ViterbiStreamState.npz")
+    jckpt.save_state(path, jvs, jcfg)
+    vs, _, _ = checkpoint.load_state(path, "cpu")
+    assert type(vs).__name__ == "ViterbiStreamState"
+    assert vs.pm.dtype == torch.float32 and vs.dec.dtype == torch.bool
+    _assert_same(vs, jvs)
     full, _ = _jax_full()
     path = os.path.join(tmp_path, "i16.npz")
     jq = quantize_full_state(full, 1e-4)

@@ -250,5 +250,51 @@ def test_kernel_wrappers_validate():
                                 "viterbi_decode_parallel",
                                 "make_stream_soft_fn"])
 def test_streaming_decoders_wait_for_their_step(fn):
-    with pytest.raises(ValueError, match="ROADMAP: A.7"):
-        getattr(fec, fn)(fec.CODE_K7, 4)
+    """Each streaming / time-parallel entry point runs on a CPU tensor and
+    equals the JAX package's (XLA backend) on the same inputs: bits and
+    decision windows equal, metrics within 1e-4."""
+    rng = np.random.default_rng(31)
+    jcode, code = CODES["k7"]
+    bits = rng.integers(0, 2, (2, 200)).astype(np.int8)
+    coded = fec.conv_encode(code, bits, terminate=False).numpy()
+    llr = ((1.0 - 2.0 * coded)
+           + 0.6 * rng.standard_normal(coded.shape)).astype(np.float32)
+    steps = llr.reshape(2, -1, 2)
+    jst = jfec.viterbi_stream_init(jcode, 2, 40, known_start=False)
+    st = fec.viterbi_stream_init(code, 2, 40, known_start=False,
+                                 device="cpu")
+
+    def same_state(st, jst):
+        np.testing.assert_array_equal(st.dec.numpy(), np.asarray(jst.dec))
+        np.testing.assert_allclose(st.pm.numpy(), np.asarray(jst.pm),
+                                   atol=1e-4, rtol=0)
+
+    if fn == "viterbi_stream_init":
+        assert st.pm.dtype == torch.float32 and st.dec.dtype == torch.bool
+        same_state(st, jst)
+    elif fn in ("viterbi_stream_step", "viterbi_stream_flush"):
+        for lo in (0, 60):
+            jst, jb = jfec.viterbi_stream_step(jcode, jst, steps[:, lo:lo + 60],
+                                               backend="xla")
+            st, b = fec.viterbi_stream_step(code, st, torch.from_numpy(
+                steps[:, lo:lo + 60]))
+            np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+            same_state(st, jst)
+        if fn == "viterbi_stream_flush":
+            np.testing.assert_array_equal(
+                fec.viterbi_stream_flush(code, st).numpy(),
+                np.asarray(jfec.viterbi_stream_flush(jcode, jst)))
+    elif fn == "viterbi_decode_parallel":
+        got = fec.viterbi_decode_parallel(code, torch.from_numpy(llr),
+                                          chunk=48, margin=35)
+        want = jfec.viterbi_decode_parallel(jcode, llr, chunk=48, margin=35,
+                                            backend="xla")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        soft = (rng.standard_normal((2, 32))
+                + 1j * rng.standard_normal((2, 32))).astype(np.complex64)
+        st, b = fec.make_stream_soft_fn(code, 4)(st, torch.from_numpy(soft))
+        jst, jb = jfec.make_stream_soft_fn(jcode, 4, backend="xla")(
+            jst, jnp.asarray(soft))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+        same_state(st, jst)

@@ -3,7 +3,9 @@ blocked in sys.modules imports every module of psk_soft_tpu_torch and runs
 one CPU engine step, a configure, a checkpoint round trip, a fused step,
 CPU ChainEngine warm-up and steady steps, plain and acquire_cfo, the
 exact-scan top-level names on a golden vector, a CPU StreamEngine in both
-pipelines through EOS, and a GroupEngine step."""
+pipelines through EOS, a GroupEngine step, build_receiver(engine="full")
+with frame sync, FEC, descrambling and CRC through a flush, and a
+streaming-FEC step and flush."""
 
 import os
 import subprocess
@@ -101,6 +103,25 @@ ge = GroupEngine([cfg, gcfg, cfg], block_symbols=64, device="cpu")
 for ch, c in enumerate([cfg, gcfg, cfg]):
     ge.push(ch, gx[:64 * c.sps])
 assert sorted(ge.step_all()) == [0, 1, 2]
+from psk_soft_tpu_torch.ops import fec as tfec
+from psk_soft_tpu_torch.ops.scramble import prbs15
+from psk_soft_tpu_torch.runtime.receiver import build_receiver
+rx = build_receiver(cfg, 128, engine="full", block_symbols=64,
+                    uw=(0, 1, 2, 3) * 4, frame_payload=32, fec=CODE_K7,
+                    fec_labeling="gray", descramble=prbs15(),
+                    crc=CRC16_CCITT, device="cpu")
+assert rx.syncer._tap_device
+for _ in range(3):
+    x = rng.standard_normal((64 * 4, 128)).astype(np.float32)
+    rx.engine.push_planes(x, x[::-1].copy())
+    rx.engine.step_packets()
+rx.engine.flush_packets()
+assert isinstance(rx.pop_frames(), list) and rx.steady
+vs = tfec.viterbi_stream_init(CODE_K7, 4, 40, device="cpu")
+vs, vb = tfec.make_stream_soft_fn(CODE_K7, 4)(
+    vs, torch.complex(torch.randn(4, 32), torch.randn(4, 32)))
+assert vb.shape == (4, 32) and tfec.viterbi_stream_flush(
+    CODE_K7, vs).shape == (4, 40)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
