@@ -144,7 +144,24 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      host ms of each stage, a profiled pass; GroupFrameSyncer over the
      config-4 MixedKernelBatchEngine against a CPU run.  Phase 7 also
      drives build_receiver(engine="chain") and wants ChainEngine's frames.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-22.  Each
+     The main run holds every B1 launch against its plain version on the
+     same window, planes and carry (B1Gate: bits equal, soft and phase
+     within B1's bounds where the sample index is equal, a differing
+     index only at a near tie), and counts the near ties;
+ 23. the front-end receiver: phase 22's stream with a one-symbol echo, a
+     carrier offset beyond the tracker's lock range, a level per channel
+     in -20..+10 dB and 4 noise-only channels, uploaded once, through
+     build_receiver(engine="full", agc, equalize=EqConfig(taps=33),
+     acquire_cfo, quality, UW 32, payload 64, K7 Gray, PRBS15, CRC-16) at
+     1024 channels for 8 convergence + 10 steady blocks and a flush, every
+     B1 launch held by B1Gate: every planted frame after convergence
+     popped once, CRC green, exact info bits; CFOs within 2e-4; the CMA
+     cost down 5x; lock > 0.8 and alarms exactly the noise channels;
+     against a 128-channel CPU run (frames, CFOs, AGC gains, equalizer
+     weights, quality EMAs); B1 once a steady block and B2 once a drain;
+     infobits/s and samples/s beside phase 22's, host ms per front end, a
+     profiled pass.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-23.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -3139,9 +3156,10 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
     rx.syncer.engine.set_device_tap(capture)
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    frames = drive(rx, C)
-    card_s = time.perf_counter() - t0
+    with B1Gate(torch, "receiver") as gate:
+        t0 = time.perf_counter()
+        frames = drive(rx, C)
+        card_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     if min(launches["demod_full_tm"], launches["viterbi_fused"]) \
             < STEADY_BLOCKS:
@@ -3226,7 +3244,8 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
                                  f"{ports}: frames differ")
     log(json.dumps({"phase": "receiver", "channels": C, "blocks": n_blocks,
                     "frames": len(frames), "frames_required": len(must),
-                    "launches": launches, "max_err_vs_cpu": err_cpu,
+                    "launches": launches, "b1_gate": gate.stats,
+                    "max_err_vs_cpu": err_cpu,
                     "stage_max_err_vs_cpu": err_stage,
                     "chain_frames": len(chain_frames),
                     "warmup_block_frames_chain_drops": len(extra),
@@ -3288,12 +3307,14 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
             host["sync_total"] - host["sync_scan_fetch"] - host["extract"]
             + host["pop_total"] - host["viterbi_drain"]
             - host["descramble_crc"])
+        rates = {"infobits_per_s": decoded * n_info / dt,
+                 "samples_per_s": n_timed * need * C / dt}
+        if depth == 0:
+            rates0 = rates
         log(json.dumps({"phase": "timing", "what": "per-stage receiver end "
                         "to end (frames only)", "pipeline_depth": depth,
                         "blocks": n_timed, "frames": decoded,
-                        "seconds": dt,
-                        "infobits_per_s": decoded * n_info / dt,
-                        "samples_per_s": n_timed * need * C / dt,
+                        "seconds": dt, **rates,
                         "chain_engine_infobits_per_s": chain_rate[depth],
                         "host_ms_per_block": host, "card": card}))
         if depth == 0:
@@ -3303,7 +3324,7 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
         bank.close()
-    return launches
+    return dict(launches=launches, b1_gate=gate.stats, rates=rates0)
 
 
 def group_sync_phase(torch, dev, card: str) -> int:
@@ -3382,6 +3403,453 @@ def group_sync_phase(torch, dev, card: str) -> int:
                     "frames_required": len(must), "max_err_vs_cpu": err,
                     "card": card}))
     return len(frames)
+
+
+# --- B1 held per launch on a service path (ROADMAP C.1) ---------------------
+
+class B1Gate:
+    """A checking wrapper over kernel B1 (``demod_kernel.demod_full_tm`` as
+    models/full calls it), installed here only for a path's main run: every
+    launch is held
+    against ``demod_full_tm_ref`` on the same window, planes and carry.
+    Bits equal; a differing sample index only where both picks' window
+    sums (in float64) lie within NEAR_TIE_REL of the largest, as phase 3
+    rules on noise; soft within SOFT_TOL and phase within PHASE_TOL at the
+    outputs whose tracker window (phase_avg + the trend) holds no differing
+    pick (the others are counted, with their largest errors).  On ``noise_channels`` (no signal) bits, soft
+    and phase are counted, not held.  Launch counts stay the kernel's
+    (the plain version does not count)."""
+
+    def __init__(self, torch, label: str, noise_channels=()):
+        from psk_soft_tpu_torch.ops.cuda import demod_kernel
+
+        self.torch, self.label, self.dk = torch, label, demod_kernel
+        self.kernel = demod_kernel.demod_full_tm
+        self.noise = sorted(noise_channels)
+        from psk_soft_tpu_torch.ops.phase import UNWRAP_TREND_LEN
+        self.trend = UNWRAP_TREND_LEN
+        self.stats = dict(launches_checked=0, outputs=0, index_differ=0,
+                          near_tie_widest=0.0, soft_max_err=0.0,
+                          phase_max_err=0.0, noise_bits_differ=0,
+                          noise_index_differ=0)
+
+    def __enter__(self):
+        from psk_soft_tpu_torch.models import full
+
+        class Checked:              # the kernel module, B1 checked
+            demod_full_tm = self._check
+
+            def __getattr__(_, name):
+                return getattr(self.dk, name)
+
+        self._full = full
+        full.demod_kernel = Checked()
+        return self
+
+    def __exit__(self, *exc):
+        self._full.demod_kernel = self.dk
+
+    def _check(self, win_re, win_im, x_re, x_im, planes, **kw):
+        torch = self.torch
+        got = self.kernel(win_re, win_im, x_re, x_im, planes, **kw)
+        ref = self.dk.demod_full_tm_ref(win_re, win_im, x_re, x_im, planes,
+                                        **kw)
+        if not kw.get("debug_ports", True) or kw.get("mf_taps"):
+            raise AssertionError(f"{self.label}: the B1 gate needs the "
+                                 f"sample index and no matched filter")
+        sps, na = kw["sps"], kw["num_avg"]
+        s_n, n_ch = got[0].shape
+        sig = torch.ones(n_ch, dtype=torch.bool, device=x_re.device)
+        sig[self.noise] = False
+        g_idx, r_idx = got[4].long(), ref[4].long()
+        same = g_idx == r_idx
+        if not torch.equal(got[3][:, sig], ref[3][:, sig]):
+            raise AssertionError(f"{self.label}: B1 bits differ from the "
+                                 f"plain version at "
+                                 f"{int((got[3] != ref[3])[:, sig].sum())} "
+                                 f"symbols of signal channels")
+        # A differing pick moves the tracker's phase for the outputs whose
+        # window (phase_avg + the trend) holds it: those are counted, and
+        # soft and phase held on the rest.
+        differ = ~same
+        span = kw["phase_avg"] + self.trend
+        cs = torch.cat([torch.zeros_like(differ[:1], dtype=torch.int32),
+                        differ.int().cumsum(0)])
+        low = torch.clamp(torch.arange(1, s_n + 1, device=cs.device) - span
+                          - 1, min=0)
+        tainted = (cs[1:] - cs[low]) > 0
+        keep = ~tainted & sig[None, :]
+        st = self.stats
+        for k, (a, b) in (("soft_max_err", (got[0], ref[0])),
+                          ("soft_max_err", (got[1], ref[1])),
+                          ("phase_max_err", (got[2], ref[2]))):
+            d = (a - b).abs()
+            if bool(keep.any()):
+                st[k] = max(st[k], float(d[keep].max()))
+            moved = tainted & sig[None, :]
+            if bool(moved.any()):
+                st[f"near_tie_{k}"] = max(st.get(f"near_tie_{k}", 0.0),
+                                          float(d[moved].max()))
+        st["near_tie_outputs"] = st.get("near_tie_outputs", 0) + int(
+            (tainted & sig[None, :]).sum())
+        n_differ = int(differ.sum())
+        if n_differ:
+            # Exact window sums of the [window | block] energies.
+            e = (torch.cat([win_re, x_re]).double() ** 2
+                 + torch.cat([win_im, x_im]).double() ** 2)
+            e = e[:(s_n + na - 1) * sps].reshape(s_n + na - 1, sps, n_ch)
+            cs = torch.cat([torch.zeros_like(e[:1]), e.cumsum(0)])
+            wsum = cs[na:] - cs[:-na]                       # (S, sps, C)
+            top = wsum.max(dim=1).values
+            gap_g = (top - wsum.gather(1, g_idx[:, None]).squeeze(1)) / top
+            gap_r = (top - wsum.gather(1, r_idx[:, None]).squeeze(1)) / top
+            widest = float(torch.maximum(gap_g, gap_r)[differ].max())
+            st["near_tie_widest"] = max(st["near_tie_widest"], widest)
+            if widest >= NEAR_TIE_REL:
+                raise AssertionError(
+                    f"{self.label}: B1 picks another sample than its plain "
+                    f"version at {n_differ} outputs, widest gap {widest} "
+                    f"(near-tie bound {NEAR_TIE_REL}): a B1 fault")
+        st["launches_checked"] += 1
+        st["outputs"] += s_n * n_ch
+        st["index_differ"] += int((differ & sig[None, :]).sum())
+        st["noise_index_differ"] += int((differ & ~sig[None, :]).sum())
+        st["noise_bits_differ"] += int((got[3] != ref[3])[:, ~sig].sum())
+        if st["soft_max_err"] > SOFT_TOL or st["phase_max_err"] > PHASE_TOL:
+            raise AssertionError(f"{self.label}: B1 against its plain "
+                                 f"version: {st}")
+        return got
+
+
+# --- phase 23: the front-end receiver (ROADMAP A.8 part 1) ------------------
+
+FRONT_SEED = 23
+FRONT_LEVEL_DB = (-20.0, 10.0)      # per-channel input level
+FRONT_ECHO = (1.0,) + (0.0,) * 7 + (0.5j,)   # tests/test_equalizer.py:156
+FRONT_NOISE = (5, 77, 600, 1000)    # channels that carry noise only
+# mu * samples a block = 0.1, the JAX live test's per-block step
+# (mu 5e-5 over 2048 samples, tests/test_equalizer.py:170); 5e-5 over this
+# phase's 4096-sample blocks left CRC failures every block in the CPU
+# rehearsal (PERF.md).
+FRONT_MU = 2.5e-5
+FRONT_CONV_BLOCKS = 8               # blocks to converge (CPU rehearsal)
+FRONT_STEADY = 10                   # steady blocks after convergence
+# The bank's mean CMA cost, first block over last.  The 33-tap filter
+# centred at tap 16 spans three terms of the echo's inverse, so the cost
+# floors near 0.04 (8.5x down after 90 blocks in the rehearsal); the 15x of
+# tests/test_equalizer.py:98 is for a channel a 15-tap filter inverts.
+FRONT_CM_DROP = 5.0
+FRONT_LOCK = 0.8
+FRONT_CFO_TOL = 2e-4                # tests/test_autocfo.py:78
+FRONT_GAIN_DB_TOL = 4.4e-4          # rtol 1e-4 on the power, test_agc.py:124
+FRONT_W_TOL = 1e-5                  # tests/test_equalizer.py:77
+FRONT_Q_RTOL = 1e-3                 # amp, power, lock: test_quality.py:52
+FRONT_EVM_RTOL = 0.15               # tests/test_quality.py:43
+FRONT_SNR_DB_TOL = 1.0              # tests/test_quality.py:35
+
+
+def front_stream(fmt, code, crc, lfsr, rng, n_blocks: int):
+    """Phase 22's S-periodic stream at C channels made harder, block by
+    block (continuous across blocks): the one-symbol echo FRONT_ECHO, a
+    carrier offset 0.018 + 0.006 c/C cycles/sample (phase 12's), a level
+    per channel in FRONT_LEVEL_DB, and FRONT_NOISE carrying unit-power
+    noise only.  Returns (starts, infos, n_info, freqs, [(T, C) complex64
+    interleaved blocks])."""
+    from psk_soft_tpu_torch.ops.equalizer import multipath
+
+    starts, infos, x, n_info = plant_chain_stream(fmt, code, crc, rng,
+                                                  lfsr=lfsr)
+    freqs = 0.018 + 0.006 * np.arange(C) / C
+    level = 10.0 ** (rng.uniform(*FRONT_LEVEL_DB, C) / 20.0)
+    need = S * SPS
+    prev = np.zeros((C, len(FRONT_ECHO) - 1), np.complex64)
+    blocks = []
+    for b in range(n_blocks):
+        y = multipath(np.concatenate([prev, x], axis=1),
+                      FRONT_ECHO)[:, prev.shape[1]:]
+        prev = x[:, -prev.shape[1]:]
+        t = np.arange(b * need, (b + 1) * need, dtype=np.float64)
+        y = y * np.exp(2j * np.pi * freqs[:, None] * t[None, :])
+        for c in FRONT_NOISE:
+            y[c] = (rng.standard_normal(need)
+                    + 1j * rng.standard_normal(need)) / np.sqrt(2.0)
+        blocks.append(np.ascontiguousarray(
+            (y * level[:, None]).T.astype(np.complex64)))
+    return starts, infos, n_info, freqs, blocks
+
+
+def front_stages(rx) -> dict:
+    """The stages of build_receiver's front-end stack by name."""
+    q = rx.quality
+    agc = q.engine
+    eq = agc.engine
+    cfo = eq.engine
+    return dict(quality=q, agc=agc, eq=eq, cfo=cfo, engine=cfo.engine)
+
+
+def front_receiver_phase(torch, dev, card: str, profile, rx22: dict) -> dict:
+    """Phase 23: NativePlaneBank -> planes uploaded once -> build_receiver(
+    engine="full", agc, equalize=EqConfig(taps=33, mu=FRONT_MU),
+    acquire_cfo, quality, UW 32, payload 64, K7 Gray, PRBS15, CRC-16) at
+    1024 channels on front_stream, FRONT_CONV_BLOCKS + FRONT_STEADY blocks
+    and a flush, every B1 launch held by B1Gate.  Every planted frame after
+    convergence pops once, CRC green, exact info bits; CFOs within 2e-4 of
+    the truth; the CMA cost down FRONT_CM_DROP x; lock > 0.8 on every
+    planted channel and alarms() exactly FRONT_NOISE; against a
+    128-channel CPU run: frame lists, bits and info bits equal, corr
+    within B1's soft bound, CFOs, AGC gains, equalizer weights and quality
+    EMAs within the FRONT_* tolerances.  Then its times beside phase 22's
+    receiver.  Returns the main run's launches and numbers."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops import scramble
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
+    from psk_soft_tpu_torch.ops.equalizer import EqConfig
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime.native_bank import NativePlaneBank
+    from psk_soft_tpu_torch.runtime.receiver import build_receiver
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rng = np.random.default_rng(FRONT_SEED)
+    fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 32)), payload=64, m=4,
+                      threshold=0.7)
+    lfsr = scramble.prbs15()
+    n_blocks = FRONT_CONV_BLOCKS + FRONT_STEADY
+    starts, infos, n_info, freqs, blocks = front_stream(
+        fmt, CODE_K7, CRC16_CCITT, lfsr, rng, n_blocks)
+    need = S * SPS
+    noise = np.zeros(C, bool)
+    noise[list(FRONT_NOISE)] = True
+
+    def upload(device, width):
+        bank = NativePlaneBank(width, capacity_samples=4 * need)
+        planes = []
+        for blk in blocks:
+            bank.push_interleaved(blk if width == C
+                                  else np.ascontiguousarray(blk[:, :width]))
+            re, im, flushed = bank.pop_planes(need, timeout=0)
+            assert not flushed
+            planes.append((torch.from_numpy(re).to(device),
+                           torch.from_numpy(im).to(device)))
+        bank.close()
+        return planes
+
+    def stack(device, width):
+        return build_receiver(
+            cfg, width, engine="full", block_symbols=S, agc=True,
+            equalize=EqConfig(taps=33, mu=FRONT_MU), acquire_cfo=True,
+            quality=True, uw=fmt.uw, frame_payload=fmt.payload,
+            uw_threshold=fmt.threshold, fec=CODE_K7, fec_labeling="gray",
+            descramble=lfsr, crc=CRC16_CCITT, device=device)
+
+    def drive(rx, planes):
+        st = front_stages(rx)
+        frames, cm0, drains = [], None, [0]
+        decode = rx.fec.decode_payloads
+
+        def counted(payloads):
+            drains[0] += 1
+            return decode(payloads)
+
+        rx.fec.decode_payloads = counted
+        for re, im in planes:
+            rx.engine.push_planes(re, im)
+            while rx.engine.ready():
+                rx.engine.step_packets()
+            if cm0 is None:
+                cm0 = st["eq"].cm_err
+            frames += rx.pop_frames()
+        rx.engine.flush_packets()
+        frames += rx.pop_frames()
+        torch.cuda.synchronize()
+        return frames, cm0, drains[0]
+
+    # --- the main path on the card, counts read around it ---
+    planes = upload(dev, C)
+    rx = stack(dev, C)
+    wrappers = {"demod_full_tm": demod_kernel.demod_full_tm,
+                "viterbi_fused": viterbi_kernel.viterbi_fused,
+                "viterbi_acs": viterbi_kernel.viterbi_acs,
+                "viterbi_traceback": viterbi_kernel.viterbi_traceback}
+    for w in wrappers.values():
+        w.launches = 0
+    with B1Gate(torch, "front-end receiver", FRONT_NOISE) as gate:
+        t0 = time.perf_counter()
+        frames, cm0, drains = drive(rx, planes)
+        card_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    st = front_stages(rx)
+    steady = n_blocks - RX_WARM_BLOCKS
+    if (launches["demod_full_tm"] != steady
+            or launches["viterbi_fused"] != drains
+            or launches["viterbi_acs"] or launches["viterbi_traceback"]):
+        raise AssertionError(f"front-end receiver launches {launches}: "
+                             f"want B1 {steady} (one a steady block), B2 "
+                             f"{drains} (one a drain)")
+
+    # Frames: at planted offsets (shifted by the equalizer's group delay,
+    # one for all), once each; after convergence CRC green with exact info
+    # bits, and every planted frame present.
+    keys = [(f.channel, f.start) for f in frames]
+    if len(set(keys)) != len(keys):
+        raise AssertionError("front-end receiver: a frame was popped twice")
+    if any(noise[f.channel] for f in frames):
+        raise AssertionError("front-end receiver: a frame on a noise-only "
+                             "channel")
+    by_off = {s0: j for j, s0 in enumerate(starts)}
+    def offset(start, s0):
+        return (start - s0 + S // 2) % S - S // 2
+
+    delays = {offset(f.start, s0) for f in frames if f.crc_ok
+              for s0 in starts if abs(offset(f.start, s0)) <= 4}
+    if len(delays) != 1:
+        raise AssertionError(f"front-end receiver: frame delays {delays}")
+    delay = delays.pop()
+    conv = FRONT_CONV_BLOCKS * S
+    late = [f for f in frames if f.start >= conv]
+    for f in late:
+        j = by_off.get((f.start - delay) % S)
+        if (j is None or not f.crc_ok or f.suspect
+                or not np.array_equal(f.info_bits, infos[f.channel, j])):
+            raise AssertionError(f"front-end receiver frame "
+                                 f"{(f.channel, f.start)}: CRC {f.crc_ok}")
+    a1 = NUM_AVG - 1
+    must = {(c, b * S + s0 + delay) for b in range(n_blocks) for s0 in starts
+            for c in range(C) if not noise[c]
+            and b * S + s0 + delay >= conv
+            and b * S + s0 + delay + fmt.frame_len <= n_blocks * S - a1}
+    if not must <= set(keys):
+        raise AssertionError(f"front-end receiver: {len(must - set(keys))} "
+                             f"planted frames missed")
+
+    # Front ends: CFOs, the CMA cost's fall, lock and alarms.
+    sig = ~noise
+    cfo_err = float(np.abs(st["cfo"].cfo - freqs)[sig].max())
+    cm1 = st["eq"].cm_err
+    cm_drop = float(cm0[sig].mean() / cm1[sig].mean())
+    snap = st["quality"].snapshot()
+    alarms = np.nonzero(st["quality"].alarms())[0].tolist()
+    lock_min = float(snap["lock"][sig].min())
+    if (cfo_err > FRONT_CFO_TOL or cm_drop < FRONT_CM_DROP
+            or lock_min <= FRONT_LOCK or alarms != sorted(FRONT_NOISE)):
+        raise AssertionError(f"front ends: cfo error {cfo_err}, cm_err "
+                             f"drop {cm_drop}, lock {lock_min}, alarms "
+                             f"{alarms}")
+
+    # --- the same stack on the CPU at 128 channels ---
+    t0 = time.perf_counter()
+    cpu_rx = stack("cpu", CPU_C)
+    cpu_frames, _, _ = drive(cpu_rx, upload("cpu", CPU_C))
+    cpu_s = time.perf_counter() - t0
+    err_cpu = frames_close("front-end receiver vs CPU", frames, cpu_frames,
+                           RX_FRAME_TOL, CPU_C, gate_soft=False)
+    cst = front_stages(cpu_rx)
+    csnap = cst["quality"].snapshot()
+    w = slice(0, CPU_C)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+    front_err = {
+        "cfo": float(np.abs(st["cfo"].cfo[w] - cst["cfo"].cfo).max()),
+        "agc_gain_db": float(np.abs(st["agc"].gains_db[w]
+                                    - cst["agc"].gains_db).max()),
+        "eq_weights": float(np.abs(st["eq"].weights[w]
+                                   - cst["eq"].weights).max()),
+        "quality_rel": max(rel(snap[k][w], csnap[k])
+                           for k in ("amp", "power", "lock")),
+        "evm_rel": rel(snap["evm_pct"][w], csnap["evm_pct"]),
+        "snr_db": float(np.abs(snap["snr_db"][w]
+                               - csnap["snr_db"]).max()),
+        "alarms_equal": bool(np.array_equal(
+            st["quality"].alarms()[w], cst["quality"].alarms()))}
+    log(json.dumps({"phase": "front_receiver_vs_cpu", **front_err,
+                    "frames_soft_max_err": err_cpu["soft"],
+                    "frames_corr_max_err": err_cpu["corr"]}))
+    if (front_err["cfo"] > FRONT_CFO_TOL
+            or front_err["agc_gain_db"] > FRONT_GAIN_DB_TOL
+            or front_err["eq_weights"] > FRONT_W_TOL
+            or front_err["quality_rel"] > FRONT_Q_RTOL
+            or front_err["evm_rel"] > FRONT_EVM_RTOL
+            or front_err["snr_db"] > FRONT_SNR_DB_TOL
+            or not front_err["alarms_equal"]):
+        raise AssertionError(f"front ends, card vs CPU: {front_err}")
+    log(json.dumps({"phase": "front_receiver", "channels": C,
+                    "blocks": n_blocks, "convergence_blocks":
+                    FRONT_CONV_BLOCKS, "frames": len(frames),
+                    "frames_after_convergence": len(late),
+                    "frames_required": len(must), "frame_delay": delay,
+                    "launches": launches, "drains": drains,
+                    "b1_gate": gate.stats, "cfo_max_abs_err": cfo_err,
+                    "cm_err_drop": cm_drop,
+                    "cm_err_drop_worst_channel": float(
+                        (cm0 / cm1)[sig].min()),
+                    "cm_err_last_max": float(cm1[sig].max()),
+                    "lock_min": lock_min, "alarms": alarms,
+                    "snr_db_min": float(snap["snr_db"][sig].min()),
+                    "evm_pct_max": float(snap["evm_pct"][sig].max()),
+                    "max_err_vs_cpu": err_cpu, "card_s": card_s,
+                    "cpu_s": cpu_s, "card": card}))
+
+    # --- times at depth 0: the whole stack, host ms per front end ---
+    rx = stack(dev, C)
+    st = front_stages(rx)
+    acc = dict.fromkeys(("agc", "eq", "cfo", "engine_push", "step",
+                         "quality", "pop"), 0.0)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            acc[name] += time.perf_counter() - t
+            return r
+        return run
+
+    st["agc"].push_planes = timed("agc", st["agc"].push_planes)
+    st["eq"].push_planes = timed("eq", st["eq"].push_planes)
+    st["cfo"].push_planes = timed("cfo", st["cfo"].push_planes)
+    st["engine"].push_planes = timed("engine_push", st["engine"].push_planes)
+    st["quality"].observe = timed("quality", st["quality"].observe)
+    step = timed("step", rx.engine.step_packets)
+    pop = timed("pop", rx.pop_frames)
+
+    def feed(b):
+        re, im = planes[b % len(planes)]
+        rx.engine.push_planes(re, im)
+        while rx.engine.ready():
+            step()
+        return pop()
+
+    for b in range(3):
+        feed(b)
+    torch.cuda.synchronize()
+    acc = dict.fromkeys(acc, 0.0)
+    n_timed, decoded = 20, 0
+    t0 = time.perf_counter()
+    for b in range(n_timed):
+        decoded += len(feed(3 + b))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    host = {k: v * 1e3 / n_timed for k, v in acc.items()}
+    own = {"agc": host["agc"] - host["eq"], "eq": host["eq"] - host["cfo"],
+           "cfo": host["cfo"] - host["engine_push"],
+           "quality": host["quality"],
+           "engine_push": host["engine_push"]}
+    rates = {"infobits_per_s": decoded * n_info / dt,
+             "samples_per_s": n_timed * need * C / dt}
+    log(json.dumps({"phase": "timing", "what": "front-end receiver end to "
+                    "end (data ports on: the quality tap reads soft)",
+                    "pipeline_depth": 0, "blocks": n_timed,
+                    "frames": decoded, "seconds": dt, **rates,
+                    "receiver_without_front_ends": rx22["rates"],
+                    "host_ms_per_block": host,
+                    "front_end_own_host_ms_per_block": own, "card": card}))
+    profile(feed, card, "front-end receiver, depth 0",
+            watch={"demod_full_tm (B1)": "demod_",
+                   "viterbi_fused (B2)": B2_KERNEL})
+    return dict(launches=launches, b1_gate=gate.stats, rates=rates)
 
 
 def main() -> int:
@@ -3667,6 +4135,11 @@ def main() -> int:
     receiver22 = receiver_phase(torch, dev, card, profile_engine,
                                 chain["infobits_per_s"])
     group22 = group_sync_phase(torch, dev, card)
+    front23 = front_receiver_phase(torch, dev, card, profile_engine,
+                                   receiver22)
+    log(json.dumps({"phase": "b1_gate_near_ties",
+                    "receiver": receiver22["b1_gate"],
+                    "front_receiver": front23["b1_gate"]}))
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},
@@ -3678,8 +4151,9 @@ def main() -> int:
                     "stream_fec_receiver": stream20["receiver_launches"],
                     "parallel_decode": {f"chunk_{k}": v
                                         for k, v in parallel21.items()},
-                    "receiver_full": receiver22,
-                    "group_sync_frames": group22}))
+                    "receiver_full": receiver22["launches"],
+                    "group_sync_frames": group22,
+                    "receiver_front_ends": front23["launches"]}))
 
     # --- the kernels line ---
     t = timings[False]

@@ -206,6 +206,18 @@ class _PipelinedPackets:
         without a plane-sized host transfer.  One slot; None clears it."""
         self._device_tap_fn = fn
 
+    def push_block(self, block) -> None:
+        """Channel-major (C, n) complex64 append (NativeChannelBank's
+        ``pop_block`` layout, and the front ends' lockstep output): row c
+        goes through ``push(c, ...)``, so an engine's ingest rules (no
+        mixing with plane staging) hold.  A tensor is read to the host,
+        where the per-channel staging lives."""
+        block = np.asarray(to_host(block), np.complex64)
+        if block.ndim != 2 or block.shape[0] != self.channels:
+            raise ValueError(f"expected ({self.channels}, n) block")
+        for c in range(self.channels):
+            self.push(c, block[c])
+
     def _emit(self, out, eos: bool = False) -> dict[str, Packet]:
         if out is not None and self._device_tap_fn is not None:
             self._device_tap_fn(out)

@@ -1,8 +1,11 @@
-"""ctypes bindings for the native plane bank (port of
-``psk_soft_tpu/runtime/native_bank.py:167-249`` over ``native/pskbank.cpp``).
+"""ctypes bindings for the native channel banks (port of
+``psk_soft_tpu/runtime/native_bank.py:92-249`` over ``native/pskbank.cpp``).
 
-The bank deframes sample-interleaved multichannel frames straight to
-TIME-MAJOR re/im planes -- kernel B1's (T, C) input layout.  The library is
+Both banks take sample-interleaved multichannel frames (a channelizer's
+natural order).  :class:`NativePlaneBank` deframes them straight to
+TIME-MAJOR re/im planes -- kernel B1's (T, C) input layout;
+:class:`NativeChannelBank` to channel-major (C, n) complex64 blocks, the
+engines' ``push_block`` layout.  The library is
 compiled from ``native/pskbank.cpp`` with g++ into
 ``build/psk_soft_tpu_torch/`` at first use (the prebuilt ``.so`` files in
 ``native/`` belong to the JAX package and are not loaded).
@@ -32,6 +35,20 @@ def _load_lib():
     path, _ = build_shared(SOURCE, "pskbank", ["g++"], CXX_FLAGS)
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.pskbank_create.restype = vp
+    lib.pskbank_create.argtypes = [i32, i64]
+    lib.pskbank_destroy.argtypes = [vp]
+    lib.pskbank_push_interleaved.restype = ctypes.c_int
+    lib.pskbank_push_interleaved.argtypes = [vp, f32p, i64]
+    lib.pskbank_available.restype = i64
+    lib.pskbank_available.argtypes = [vp, i64, i64]
+    lib.pskbank_pop_block.restype = i64
+    lib.pskbank_pop_block.argtypes = [vp, f32p, i64, ctypes.POINTER(i32)]
+    lib.pskbank_close.argtypes = [vp]
+    lib.pskbank_depth.restype = i64
+    lib.pskbank_depth.argtypes = [vp]
+    lib.pskbank_stats.argtypes = [vp, ctypes.POINTER(ctypes.c_uint64)]
     lib.pskplane_create.restype = vp
     lib.pskplane_create.argtypes = [i32, i64, i32]
     lib.pskplane_destroy.argtypes = [vp]
@@ -55,6 +72,76 @@ class BankStats:
     samples_out: int
     flushes: int
     dropped_samples: int
+
+
+class NativeChannelBank:
+    """Bounded lockstep multichannel ring with native deinterleave to
+    channel-major (C, n) complex64 blocks.
+
+    ``capacity_samples`` bounds the queued depth per channel; a push that
+    would exceed it flushes the ring and the next :meth:`pop_block`
+    reports ``flushed=True``.
+    """
+
+    def __init__(self, channels: int, capacity_samples: int = 1 << 20):
+        self._lib = _load_lib()
+        self.channels = int(channels)
+        self._h = self._lib.pskbank_create(self.channels,
+                                           int(capacity_samples))
+        if not self._h:
+            raise ValueError("pskbank_create failed (bad channels/capacity)")
+
+    def push_interleaved(self, frames: np.ndarray) -> bool:
+        """Push sample-interleaved complex64 data: (n, C), (n*C,), or raw
+        float32 of length 2*n*C.  Returns True on overflow flush."""
+        arr = np.asarray(frames)
+        if np.iscomplexobj(arr):
+            arr = arr.astype(np.complex64, copy=False).view(np.float32)
+        arr = np.ascontiguousarray(arr, np.float32).ravel()
+        if arr.size % (2 * self.channels):
+            raise ValueError(
+                f"push must be whole frames of {self.channels} channels")
+        n_frames = arr.size // (2 * self.channels)
+        rc = self._lib.pskbank_push_interleaved(
+            self._h, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            n_frames)
+        if rc < 0:
+            raise RuntimeError(f"pskbank_push_interleaved failed: {rc}")
+        return bool(rc)
+
+    def pop_block(self, n: int, timeout: Optional[float] = None):
+        """Blocking pop of ``(block, flushed)`` with a channel-major (C, n)
+        complex64 block; ``flushed`` reports (and clears) the overflow
+        marker set since the last pop.  None on timeout."""
+        timeout_ms = -1 if timeout is None else max(0, int(timeout * 1000))
+        avail = self._lib.pskbank_available(self._h, int(n), timeout_ms)
+        if avail < n:
+            return None
+        out = np.empty((self.channels, n), np.complex64)
+        flushed = ctypes.c_int32()
+        rc = self._lib.pskbank_pop_block(
+            self._h, out.view(np.float32).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)),
+            int(n), ctypes.byref(flushed))
+        if rc < 0:
+            return None     # raced with a concurrent consumer's pop
+        return out, bool(flushed.value)
+
+    def close(self) -> None:
+        self._lib.pskbank_close(self._h)
+
+    def depth(self) -> int:
+        return int(self._lib.pskbank_depth(self._h))
+
+    def stats(self) -> BankStats:
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.pskbank_stats(self._h, out)
+        return BankStats(*[int(v) for v in out])
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pskbank_destroy(self._h)
+            self._h = None
 
 
 class NativePlaneBank:

@@ -1,16 +1,17 @@
 """One-call receiver assembly (port of ``psk_soft_tpu/runtime/receiver.py``).
 
-``build_receiver`` wires the receive chain in the canonical order:
+``build_receiver`` wires the receive chain in the canonical order (the
+JAX CLI's ``demod-batch`` composition):
 
+    AgcFrontEnd( EqFrontEnd( AutoCfoEngine( engine )))   <- sample side
     FrameCrcChecker( FrameDescrambler( FecFrameDecoder(
-        FrameSyncer( StreamFecDecoder( engine )))))
+        FrameSyncer( StreamFecDecoder( QualityMonitor( ... ))))))
 
 The sample side returns as ``rx.engine`` (push data into it, drive
 ``step_packets``/``flush_packets``); the frame side drains through
-``rx.pop_frames()``.  Every stage is optional.  Every stage and the engine
-run on ``device``.  The JAX package's sample-side front ends and quality
-tap (``agc``, ``equalize``, ``acquire_cfo``, ``quality``) wait for ROADMAP
-A.8 and raise.
+``rx.pop_frames()``.  Every stage is optional and omitted stages collapse
+out of the stack.  Every stage and the engine run on ``device``; planes
+pushed as tensors on it stay there through the front ends.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ class Receiver:
 
     engine: object                 # outermost sample-side stage (push here)
     frames: object | None          # outermost frame-side stage (pop here)
-    quality: object | None = None  # QualityMonitor (ROADMAP A.8; None)
+    quality: object | None = None  # QualityMonitor, if enabled
     syncer: object | None = None   # FrameSyncer, if enabled
     fec: object | None = None      # FecFrameDecoder, if enabled
     stream_fec: object | None = None
@@ -61,8 +62,11 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
         kernel-B1 bank, FullKernelBatchEngine), or "chain" (ChainEngine:
         demod, seam sync, Viterbi and CRC per block; requires uw + fec,
         gray labeling and no per-stage wrappers).
-      agc / equalize / acquire_cfo / quality: the JAX package's front ends
-        and quality tap; not ported yet (ROADMAP A.8), they raise.
+      agc / equalize / acquire_cfo: sample-side front ends (``equalize``
+        takes an ops.equalizer.EqConfig, or True for
+        ``EqConfig(dd_m=M)``).
+      quality: attach a QualityMonitor tap (it reads the soft packets, so
+        it sees nothing with ``data_ports=False``).
       uw: unique-word symbol indices enabling frame sync.
       fec: ops.fec.ConvCode (frame payloads Viterbi-decoded).
       descramble: ops.scramble.Lfsr (frame-synchronous additive).
@@ -77,13 +81,6 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
     from .engine_batch import BatchEngine
     from .engine_full import FullKernelBatchEngine
 
-    for name, on in (("agc", agc), ("equalize", equalize),
-                     ("acquire_cfo", acquire_cfo), ("quality", quality)):
-        if on:
-            raise ValueError(f"build_receiver({name}=...) wraps a module "
-                             f"not ported yet (ROADMAP: A.8, front ends "
-                             f"and quality)")
-
     def frame_format():
         return FrameFormat(
             uw=tuple(int(v) for v in np.asarray(uw).reshape(-1)),
@@ -94,11 +91,13 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
         if uw is None or fec is None:
             raise ValueError("engine='chain' is the fused frame pipeline; "
                              "it requires uw=... and fec=...")
-        if descramble or stream_fec or fec_interleave:
+        if (agc or equalize or acquire_cfo or quality or descramble
+                or stream_fec or fec_interleave):
             raise ValueError("engine='chain' composes demod+sync+FEC+CRC "
                              "per block; per-stage wrappers "
-                             "(descramble/interleave/stream_fec) need the "
-                             "per-stage stack (engine='full')")
+                             "(agc/equalize/cfo/quality/descramble/"
+                             "interleave/stream_fec) need the per-stage "
+                             "stack (engine='full')")
         if fec_labeling != "gray":
             raise ValueError("engine='chain' decodes gray-labeled "
                              "payloads (fec_labeling='gray')")
@@ -118,6 +117,25 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
                           device=device, **kw)
     else:
         raise ValueError(f"unknown engine {engine!r}")
+
+    if acquire_cfo:
+        from .autocfo import AutoCfoEngine
+        eng = AutoCfoEngine(eng)
+    if equalize:
+        from ..ops.equalizer import EqConfig
+        from .equalizer import EqFrontEnd
+        eq_cfg = (equalize if not isinstance(equalize, bool)
+                  else EqConfig(dd_m=cfg.constellation_size))
+        eng = EqFrontEnd(eng, eq_cfg)
+    if agc:
+        from ..ops.agc import AgcConfig
+        from .agc import AgcFrontEnd
+        eng = AgcFrontEnd(eng, AgcConfig(chunk=cfg.sps))
+
+    qual = None
+    if quality:
+        from .quality import QualityMonitor
+        eng = qual = QualityMonitor(eng)
 
     sfec = None
     if stream_fec is not None:
@@ -151,5 +169,5 @@ def build_receiver(cfg: DemodConfig, channels: int, *,
     # The frame-side wrappers tap packets through the sample side: route
     # step/flush through the outermost frame stage when present.
     top = frames if frames is not None else eng
-    return Receiver(engine=top, frames=frames, syncer=syncer, fec=fec_stage,
-                    stream_fec=sfec)
+    return Receiver(engine=top, frames=frames, quality=qual, syncer=syncer,
+                    fec=fec_stage, stream_fec=sfec)

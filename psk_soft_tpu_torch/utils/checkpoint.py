@@ -12,8 +12,7 @@ complex leaves split into float32 ``<key>__re`` / ``<key>__im``; nested
 states under dotted keys (``demod.win_re``); ``None`` fields (a disabled
 AGC) recorded as such.  Pre-r5 flat files (``fields`` and
 ``complex_fields`` in the header) load too.  States are matched by class
-name; a class the port has not ported yet raises ValueError naming its
-ROADMAP step.
+name; every state class of the JAX package has its port here.
 """
 
 from __future__ import annotations
@@ -26,12 +25,6 @@ import torch
 
 from ..config import DemodConfig
 
-# Classes of the JAX package the port has not ported yet.
-_LATER = {
-    "EqState": "A.8, front ends (equalizer)",
-}
-
-
 def _registry() -> dict:
     from ..models.blockpsk import FFState, SymbolBackendState
     from ..models.chain import (ChainState, FrontChainState, FrontState,
@@ -39,12 +32,13 @@ def _registry() -> dict:
     from ..models.full import FullState
     from ..models.fused import FusedState
     from ..ops.agc import AgcState
+    from ..ops.equalizer import EqState
     from ..ops.fec import ViterbiStreamState
     from ..state import DemodState
 
     return {cls.__name__: cls for cls in (
         DemodState, FFState, SymbolBackendState, FusedState, FullState,
-        AgcState, SeamTailState, ChainState, FrontState, FrontChainState,
+        EqState, AgcState, SeamTailState, ChainState, FrontState, FrontChainState,
         ViterbiStreamState)}
 
 
@@ -52,9 +46,6 @@ def _state_class(name: str):
     reg = _registry()
     if name in reg:
         return reg[name]
-    if name in _LATER:
-        raise ValueError(f"checkpoint holds a {name}, which is not ported "
-                         f"yet (ROADMAP: {_LATER[name]})")
     raise ValueError(f"unknown state class {name!r} in checkpoint")
 
 

@@ -24,6 +24,7 @@ from ..models.fused import FusedState
 from ..models.mixed import MixedParams
 from ..ops.agc import AgcConfig, AgcState
 from ..ops.crc import CrcSpec
+from ..ops.equalizer import EqState
 from ..ops.fec import ConvCode, ViterbiStreamState
 from ..ops.framesync import FrameFormat
 from ..state import DemodState
@@ -100,6 +101,17 @@ def viterbi_stream_state_from_numpy(arrays: Mapping,
 
 
 def viterbi_stream_state_to_numpy(state: ViterbiStreamState) -> dict:
+    return _to_numpy(state)
+
+
+def eq_state_from_numpy(arrays: Mapping, device) -> EqState:
+    """The equalizer's carry on ``device`` from a mapping of its fields
+    ((..., L) complex64 w, (..., L-1) complex64 hist; e.g. the JAX
+    EqState's fields as numpy)."""
+    return _from_numpy(EqState, arrays, device)
+
+
+def eq_state_to_numpy(state: EqState) -> dict:
     return _to_numpy(state)
 
 

@@ -276,20 +276,44 @@ def test_pre_r5_flat_format_loads(tmp_path):
 
 
 def test_unported_classes_raise(tmp_path):
-    """A JAX checkpoint of a class not ported yet (EqState) raises, naming
-    its ROADMAP step; a JAX ViterbiStreamState (ported now) loads with its
-    leaves, dtypes and layout kept; a JAX int16-window FullState loads as
-    int16 and restores into an int16-ingest engine, whose carry then
-    equals the JAX one (an engine without ingest_scale refuses it)."""
-    from psk_soft_tpu.ops.equalizer import EqConfig, eq_init
+    """The classes a port step added later cross both ways: a JAX EqState
+    (complex leaves as __re/__im) loads with its leaves, dtypes and layout
+    kept, a port EqState saved mid-adaptation loads in JAX, and
+    utils/interop carries it without a file; a JAX ViterbiStreamState loads
+    with its leaves, dtypes and layout kept; a JAX int16-window FullState
+    loads as int16 and restores into an int16-ingest engine, whose carry
+    then equals the JAX one (an engine without ingest_scale refuses it).
+    An unknown class still raises."""
+    from psk_soft_tpu.ops.equalizer import EqConfig, eq_block, eq_init
     from psk_soft_tpu.ops.fec import viterbi_stream_init
+    from psk_soft_tpu_torch.ops import equalizer as teq
 
     jcfg = JaxDemodConfig(**KW)
-    st = eq_init(EqConfig(taps=5), (2,))
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((2, 64)) + 1j * rng.standard_normal((2, 64))
+         ).astype(np.complex64)
+    jst, _, _ = eq_block(EqConfig(taps=5), eq_init(EqConfig(taps=5), (2,)),
+                         x)
     path = os.path.join(tmp_path, "EqState.npz")
-    jckpt.save_state(path, st, jcfg)
-    with pytest.raises(ValueError, match="ROADMAP: A.8"):
-        checkpoint.load_state(path, "cpu")
+    jckpt.save_state(path, jst, jcfg, extra={"updates": 1})
+    st, cfg, extra = checkpoint.load_state(path, "cpu")
+    assert isinstance(st, teq.EqState) and st.w.dtype == torch.complex64
+    assert cfg == DemodConfig(**KW) and extra == {"updates": 1}
+    _assert_same(st, jst)
+    tst, _, _ = teq.eq_block(teq.EqConfig(taps=5), st, torch.from_numpy(x))
+    path = os.path.join(tmp_path, "EqState_port.npz")
+    checkpoint.save_state(path, tst, DemodConfig(**KW))
+    jback, _, _ = jckpt.load_state(path)
+    _assert_same(tst, jback)
+    arrays = interop.eq_state_to_numpy(tst)
+    assert set(arrays) == {"w", "hist"}
+    _assert_same(interop.eq_state_from_numpy(arrays, "cpu"), jback)
+    np.savez(os.path.join(tmp_path, "unknown.npz"), __header__=np.frombuffer(
+        json.dumps({"state_class": "NoSuchState", "fields": [],
+                    "complex_fields": [], "config": dataclasses.asdict(
+                        jcfg), "extra": {}}).encode(), np.uint8))
+    with pytest.raises(ValueError, match="unknown state class"):
+        checkpoint.load_state(os.path.join(tmp_path, "unknown.npz"), "cpu")
     jvs = viterbi_stream_init(JAX_K7, 2, 40, known_start=False)
     path = os.path.join(tmp_path, "ViterbiStreamState.npz")
     jckpt.save_state(path, jvs, jcfg)

@@ -362,12 +362,25 @@ def test_build_receiver_validation(case):
 @pytest.mark.parametrize("option", ["agc", "equalize", "acquire_cfo",
                                     "quality"])
 def test_build_receiver_a8_options_raise(option):
-    """The sample-side front ends and the quality tap are A.8 modules:
-    each raises, naming that step, and is served no other way."""
+    """The sample-side front ends and the quality tap (ROADMAP A.8): each
+    raises under engine="chain", as the JAX receiver's do, and under
+    "batch" and "full" builds its stage between the engine and the frame
+    syncer, on the receiver's device."""
+    from psk_soft_tpu_torch.runtime import agc, autocfo, equalizer, quality
+
+    cls = {"agc": agc.AgcFrontEnd, "equalize": equalizer.EqFrontEnd,
+           "acquire_cfo": autocfo.AutoCfoEngine,
+           "quality": quality.QualityMonitor}[option]
     cfg = DemodConfig(sps=8, num_avg=20, constellation_size=4, phase_avg=20)
-    for engine in ("batch", "full", "chain"):
-        with pytest.raises(ValueError, match="ROADMAP: A.8"):
-            build_receiver(cfg, 128, engine=engine, uw=(0, 1, 2, 3) * 4,
-                           frame_payload=64, fec=fec.CODE_K7,
-                           fec_labeling="gray", device="cpu",
-                           **{option: True})
+    kw = dict(uw=(0, 1, 2, 3) * 4, frame_payload=64, fec=fec.CODE_K7,
+              fec_labeling="gray", device="cpu", **{option: True})
+    with pytest.raises(ValueError, match="per-stage"):
+        build_receiver(cfg, 128, engine="chain", **kw)
+    for engine in ("batch", "full"):
+        rx = build_receiver(cfg, 128, engine=engine, **kw)
+        stage = rx.syncer.engine
+        assert type(stage) is cls and stage.engine.device.type == "cpu"
+        assert (rx.quality is stage) == (option == "quality")
+        if option == "equalize":
+            assert stage.eq_cfg.dd_m == 4
+        assert rx.syncer._tap_device and rx.channels == 128
