@@ -161,7 +161,28 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      weights, quality EMAs); B1 once a steady block and B2 once a drain;
      infobits/s and samples/s beside phase 22's, host ms per front end, a
      profiled pass.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-23.  Each
+ 24. the input side (ROADMAP A.8 part 2), each part against a CPU run:
+     (a) a wideband capture of 1024 channels (raised-cosine QPSK, 4 left
+     empty, a polyphase synthesis bank) -> ChannelizerFrontEnd (8 taps a
+     branch) -> FullKernelBatchEngine, 1 warm-up + 6 steady blocks of 512
+     symbols, every B1 launch held by B1Gate: the channelizer within 2e-5
+     of its CPU run and of the direct DDC on 8 channels, B1 once a steady
+     block, packets equal a 128-channel CPU run, every occupied channel's
+     99th-percentile QPSK angle error under 0.1, one block of
+     channelize_block_os2 within 2e-5 of its CPU run; (b)
+     ResampledBankEngine into B1 at 1024 channels on the gather path
+     (native sps 7.3-9.25), the uniform path (10 -> 8) and the grouped
+     path (7.3, 8.0, 8.9, 9.25), 1 + 4 blocks and a flush each, B1 once a
+     steady block, packets equal a 128-channel CPU run; (c) estimate_baud
+     and classify_psk on 1024 x 8192 samples (planted sps, M in {2, 4, 8},
+     CFO; noise channels): card equals CPU, planted values recovered; (d)
+     a producer thread -> NativePacketQueue -> FeedThread -> StreamEngine
+     on the card, 64 packets, equal to a CPU StreamEngine, and a forced
+     overflow that flags the next packet and resets the engine.  Times:
+     the channelizer's device ms a block beside its bound and the
+     upload's ms, the wideband path's samples/s, each resampler path's
+     host and device ms a block, the probe's ms.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-24.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -174,11 +195,13 @@ kernel, then ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3852,6 +3875,637 @@ def front_receiver_phase(torch, dev, card: str, profile, rx22: dict) -> dict:
     return dict(launches=launches, b1_gate=gate.stats, rates=rates)
 
 
+# --- phase 24: the input side (ROADMAP A.8 part 2) ---------------------------
+
+IN_SEED = 24
+WB_K = 8                      # the channelizer's taps per branch
+WB_STEADY = 6                 # wideband: steady blocks after the warm-up
+WB_SIGMA = 0.03               # noise floor of every channel (30 dB down)
+WB_TOL = 2e-5                 # channelizer: tests/test_channelizer.py:42-43
+WB_ORACLE_ROWS = 1024         # rows of a block held against the direct DDC
+WB_ANGLE = 0.1                # QPSK angle error, 99th percentile, per
+#                               occupied channel (tests/test_channelizer.py
+#                               :223-226)
+RS_STEADY = 4                 # resampler runs: steady blocks after warm-up
+RS_TAPS = 8                   # ResamplerBank's taps_per_phase (default)
+PROBE_T = 8192                # probe: channel-rate samples per channel
+PROBE_SPS = (5.5, 6.25, 7.5, 8.0)    # rectangular pulses put a line at every
+#   harmonic of the baud; the estimator folds back the 2nd and 3rd only,
+#   so every planted sps keeps its 4th harmonic at or above Nyquist
+PROBE_M = (2, 4, 8)
+PROBE_SNR_DB = 20.0
+PROBE_SPS_RTOL = 1e-3         # card vs CPU (tests/test_torch_probe.py)
+PROBE_CFO_TOL = 1e-5
+PROBE_CONF_RTOL = 1e-3
+QUEUE_PACKETS = 64
+
+
+def wideband_capture(rng, n_blocks: int, noise) -> list:
+    """(S*SPS*C,) complex64 wideband blocks: raised-cosine QPSK at sps SPS
+    on every channel but ``noise``, a noise floor WB_SIGMA on all, summed
+    by the polyphase synthesis bank (one inverse FFT per channel-rate
+    row, WB_K taps per branch), continuous across blocks."""
+    from psk_soft_tpu_torch.ops.channelizer import prototype_taps
+    from psk_soft_tpu_torch.testing.wideband import rc_psk, synthesize
+
+    rows = S * SPS
+    x, _ = rc_psk(np.full(C, float(SPS)), n_blocks * rows, 4, rng)
+    x[list(noise)] = 0
+    for part in (1, 1j):
+        x += part * (WB_SIGMA / np.sqrt(2.0)) * rng.standard_normal(
+            x.shape, dtype=np.float32)
+    taps = prototype_taps(C, WB_K)
+    blocks, carry = [], None
+    for b in range(n_blocks):
+        w, carry = synthesize(x[:, b * rows:(b + 1) * rows].T, taps, carry)
+        blocks.append(w)
+    return blocks
+
+
+def wideband_phase(torch, dev, card: str, event_ms) -> dict:
+    """Phase 24a: a wideband capture (C channels x WB_STEADY + 1 blocks of
+    S symbols, 4 left empty) -> ChannelizerFrontEnd -> the planes on the
+    card -> FullKernelBatchEngine, every B1 launch held by B1Gate.  The
+    channelizer's card output within WB_TOL of the port's CPU run (all
+    blocks) and of the direct DDC (8 channels of one block); B1 once a
+    steady block; packets equal a CPU run (engine at CPU_C channels on the
+    CPU front end's planes); every occupied channel's QPSK angle error
+    after the warm-up under WB_ANGLE; one block of the 2x-oversampled bank
+    within WB_TOL of its CPU run.  Then the channelizer's device ms a
+    block beside its bound, the upload's ms and the path's samples/s."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops import channelizer as ch
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.runtime.channelizer import ChannelizerFrontEnd
+    from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
+    from psk_soft_tpu_torch.runtime.streams import PORT_SOFT, SRI
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    # The empty channels lie outside the first CPU_C, which the CPU run
+    # compares.
+    noise = tuple(CPU_C + (C - CPU_C) * k // 4 + 7 for k in range(4))
+    rows = S * SPS
+    t0 = time.perf_counter()
+    blocks = wideband_capture(np.random.default_rng(IN_SEED), 1 + WB_STEADY,
+                              noise)
+    synth_s = time.perf_counter() - t0
+    sri = SRI(stream_id="wideband", xdelta=1e-6)
+
+    def drive(device, width, tap):
+        fe = ChannelizerFrontEnd(C, taps_per_branch=WB_K, device=device)
+        eng = FullKernelBatchEngine(cfg, width, block_symbols=S,
+                                    device=device)
+        eng.set_input_sri(sri)
+        pkts = []
+        for blk in blocks:
+            fe.push(blk)
+            re, im = fe.step_planes(rows)
+            tap.append((re, im))
+            if width != C:
+                re, im = re[:, :width], im[:, :width]
+            eng.push_planes(re, im)
+            pkts.append(eng.step_packets())
+        pkts.append(eng.flush_packets())
+        return pkts
+
+    # --- the main path on the card, B1's count read around it ---
+    card_planes = []
+    demod_kernel.demod_full_tm.launches = 0
+    with B1Gate(torch, "wideband channelizer", noise) as gate:
+        t0 = time.perf_counter()
+        gpu = drive(dev, C, card_planes)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    launches = demod_kernel.demod_full_tm.launches
+    if launches != WB_STEADY:
+        raise AssertionError(f"wideband: B1 launched {launches} times for "
+                             f"{WB_STEADY} steady blocks")
+    for re, im in card_planes:
+        if (re.device.type != torch.device(dev).type
+                or re.dtype != torch.float32 or not re.is_contiguous()
+                or not im.is_contiguous() or tuple(re.shape) != (rows, C)):
+            raise AssertionError("wideband: the front end's planes are not "
+                                 "contiguous float32 (rows, C) on the card")
+
+    # --- the same stack on the CPU ---
+    cpu_planes = []
+    t0 = time.perf_counter()
+    cpu = drive("cpu", CPU_C, cpu_planes)
+    cpu_s = time.perf_counter() - t0
+    ch_err = max(float(max((a.cpu() - b).abs().max() for a, b in zip(g, c)))
+                 for g, c in zip(card_planes, cpu_planes))
+
+    # Direct DDC of one block on a few channels (float64 on the host).
+    chans = np.unique(np.r_[0, 1, 5, C // 3, C // 2, noise[0], C - 2, C - 1])
+    L = WB_K * C
+    xx = np.concatenate([blocks[0][-(WB_K - 1) * C:],
+                         blocks[1][:(WB_ORACLE_ROWS + WB_K - 1) * C]])
+    win = np.lib.stride_tricks.sliding_window_view(
+        xx.astype(np.complex128), L)[::C][:WB_ORACLE_ROWS]
+    taps = ch.prototype_taps(C, WB_K).astype(np.float64)
+    want = win @ (taps[:, None] * np.exp(-2j * np.pi * np.outer(
+        np.arange(L), chans) / C))
+    re1, im1 = (p[:WB_ORACLE_ROWS, torch.from_numpy(chans).to(p.device)]
+                .cpu().numpy() for p in card_planes[1])
+    oracle_err = float(np.abs(re1 + 1j * im1 - want).max())
+    if ch_err > WB_TOL or oracle_err > WB_TOL:
+        raise AssertionError(f"channelizer: card vs CPU {ch_err}, vs the "
+                             f"direct DDC {oracle_err} (bound {WB_TOL})")
+    del win, want
+
+    pkt_err = compare_service(gpu, cpu, "wideband engine vs CPU",
+                              rows=CPU_C)
+    occupied = np.ones(C, bool)
+    occupied[list(noise)] = False
+    soft = np.concatenate([p[PORT_SOFT].data for p in gpu[1:]
+                           if p and p[PORT_SOFT].data.size], axis=1)
+    ang = np.angle(soft[occupied] * np.exp(-1j * np.pi / 4)) % (np.pi / 2)
+    p99 = np.percentile(np.minimum(ang, np.pi / 2 - ang), 99, axis=1)
+    if soft.shape != (C, WB_STEADY * S) or float(p99.max()) >= WB_ANGLE:
+        raise AssertionError(f"wideband: soft {soft.shape}, worst channel's "
+                             f"99th-percentile angle error {p99.max()}")
+
+    # One block of the 2x-oversampled bank, card vs CPU.
+    t_dev = torch.from_numpy(ch.prototype_taps(C, WB_K))
+    os2 = []
+    for device in (dev, "cpu"):
+        _, y = ch.channelize_block_os2(
+            t_dev.to(device), ch.channelizer_os2_init(C, WB_K, device),
+            torch.from_numpy(blocks[1]).to(device))
+        os2.append(y.cpu())
+    os2_err = float((os2[0] - os2[1]).abs().max())
+    if os2_err > WB_TOL or tuple(os2[0].shape) != (2 * rows, C):
+        raise AssertionError(f"channelize_block_os2 card vs CPU: {os2_err}")
+    del os2, card_planes, cpu_planes
+
+    # --- times: the channelizer alone, the upload, the path end to end ---
+    taps_d = t_dev.to(dev)
+    carry_d = ch.channelizer_init(C, WB_K, dev)
+    xs = [(torch.from_numpy(b).to(dev),) for b in blocks[:4]]
+    chan_ms = event_ms(lambda x: ch.channelize_block(taps_d, carry_d, x), xs)
+    up_ms = event_ms(lambda b: torch.from_numpy(b).to(dev),
+                     [(b,) for b in blocks[:4]])
+    del xs
+    # Bound: the block and carry read once, the rows and carry written once;
+    # K complex multiply-adds a sample plus a C-point FFT (5 C log2 C) a row.
+    ch_bytes = (2 * rows * C + 2 * (WB_K - 1) * C) * 8 + WB_K * C * 4
+    ch_ops = rows * C * 8 * WB_K + rows * 5 * C * np.log2(C)
+    bound = {"bytes_ms": ch_bytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": ch_ops / FP32_OPS_PER_S * 1e3}
+
+    fe = ChannelizerFrontEnd(C, taps_per_branch=WB_K, device=dev)
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=S, device=dev)
+    eng.set_input_sri(sri)
+    acc = dict(front_end=0.0, engine=0.0)
+
+    def feed(b):
+        t = time.perf_counter()
+        fe.push(blocks[b % len(blocks)])
+        planes = fe.step_planes(rows)
+        acc["front_end"] += time.perf_counter() - t
+        t = time.perf_counter()
+        eng.push_planes(*planes)
+        out = eng.step_packets()
+        acc["engine"] += time.perf_counter() - t
+        return out
+
+    for b in range(2):
+        feed(b)
+    torch.cuda.synchronize()
+    acc = dict.fromkeys(acc, 0.0)
+    n_timed = 6
+    t0 = time.perf_counter()
+    for b in range(n_timed):
+        feed(2 + b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = dict(launches=launches, b1_gate=gate.stats,
+               channelizer_max_abs_err=max(ch_err, oracle_err, os2_err),
+               samples_per_s=n_timed * rows * C / dt)
+    log(json.dumps({"phase": "wideband", "channels": C, "taps_per_branch":
+                    WB_K, "blocks": len(blocks), "launches": launches,
+                    "channelizer_vs_cpu": ch_err,
+                    "channelizer_vs_direct_ddc": oracle_err,
+                    "oracle_channels": chans.tolist(), "os2_vs_cpu": os2_err,
+                    "packets_vs_cpu": pkt_err, "b1_gate": gate.stats,
+                    "qpsk_angle_p99_worst": float(p99.max()),
+                    "noise_channels": list(noise),
+                    "synthesis_s": synth_s, "card_s": card_s,
+                    "cpu_s": cpu_s, "card": card}))
+    log(json.dumps({"phase": "timing", "what": "wideband input side",
+                    "channelizer_device_ms_per_block": chan_ms,
+                    "channelizer_bound_ms": bound,
+                    "upload_ms_per_block": up_ms,
+                    "block_bytes": rows * C * 8, "pipeline_depth": 0,
+                    "blocks": n_timed, "seconds": dt,
+                    "input_samples_per_s": res["samples_per_s"],
+                    "host_ms_per_block": {k: v * 1e3 / n_timed
+                                          for k, v in acc.items()},
+                    "card": card}))
+    return res
+
+
+RS_PATHS = (
+    # (name, native sps of channel c, ResamplerBank options)
+    ("gather", lambda c: 7.3 + 1.95 * (c % CPU_C) / (CPU_C - 1),
+     dict(uniform=False)),
+    ("uniform", lambda c: 10.0, {}),
+    ("grouped", lambda c: (7.3, 8.0, 8.9, 9.25)[c % 4], {}),
+)
+
+
+def blank_tail(pkts: list, live: np.ndarray) -> list:
+    """Copies of a bank's packet dicts with each channel's values past its
+    first ``live[c]`` emitted symbols set to 0: there the timing windows
+    read only the resampler's EOS zero padding and its lead-out, whose
+    energies tie."""
+    from psk_soft_tpu_torch.runtime.streams import PORT_SOFT
+
+    out, done = [], 0
+    for p in pkts:
+        if not p:
+            out.append(p)
+            continue
+        width = p[PORT_SOFT].data.shape[-1]
+        q = {}
+        for port, pk in p.items():
+            d = pk.data
+            if d.ndim == 2 and width:
+                per = d.shape[1] // width
+                sym = done + np.arange(d.shape[1]) // per
+                d = np.where(sym[None, :] < live[:d.shape[0], None], d,
+                             np.zeros((), d.dtype))
+            q[port] = dataclasses.replace(pk, data=d)
+        done += width
+        out.append(q)
+    return out
+
+
+def resampler_device_ms(torch, dev, bank, event_ms) -> dict:
+    """The device work of one ResamplerBank block step, by CUDA events:
+    the step runs once with its uploads and device steps
+    (ops/resample's functions) recorded, then each is replayed alone, so
+    the host's window fill is left out."""
+    from psk_soft_tpu_torch.runtime import resampler as mod
+
+    uploads, calls = [], []
+    banks = [bank] + [sub for _, _, sub in bank._groups or ()]
+    steps = {n: getattr(mod, n)
+             for n in ("resample_block", "resample_block_uniform")}
+
+    def recorded(fn):
+        def run(*a):
+            calls.append((fn, a))
+            return fn(*a)
+        return run
+
+    def recorded_upload(up):
+        def run(a):
+            uploads.append(np.ascontiguousarray(a))
+            return up(a)
+        return run
+
+    for n, fn in steps.items():
+        setattr(mod, n, recorded(fn))
+    for b in banks:
+        b._upload = recorded_upload(b._upload)
+    try:
+        if bank.step_planes() is None:
+            raise AssertionError("resampler not ready for the replay")
+    finally:
+        for n, fn in steps.items():
+            setattr(mod, n, fn)
+        for b in banks:
+            del b._upload
+    return {"upload": event_ms(lambda: [torch.from_numpy(a).to(dev)
+                                        for a in uploads], [()]),
+            "steps": event_ms(lambda: [fn(*a) for fn, a in calls], [()]),
+            "uploads": len(uploads), "upload_bytes": sum(
+                a.nbytes for a in uploads), "step_calls": len(calls)}
+
+
+def resampled_phase(torch, dev, card: str, event_ms) -> dict:
+    """Phase 24b: ResampledBankEngine(pipeline="full") at C channels into
+    B1 on each resampler path (RS_PATHS: the gather path over native sps
+    7.3-9.25, the uniform banded product at sps 10 -> 8, the grouped path
+    over examples/hetero_rate_bank.py's four rates), raised-cosine QPSK at
+    each channel's native rate pushed a block at a time, RS_STEADY + 1
+    blocks and a flush, every B1 launch before the flush held by B1Gate:
+    B1 once a steady block (the flush's drained blocks included); packets
+    equal a CPU run at CPU_C channels (the drained tail past the pushed
+    samples blanked on both); the engine's SRI rescaled.  Then each path's
+    host ms (push, step) and device ms (resampler_device_ms) a block."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.runtime.resampler import (ResampledBankEngine,
+                                                      ResamplerBank)
+    from psk_soft_tpu_torch.runtime.streams import SRI
+    from psk_soft_tpu_torch.testing.wideband import rc_psk
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rows = S * SPS
+    n_blocks = 1 + RS_STEADY
+    rng = np.random.default_rng(IN_SEED + 1)
+    out = {}
+    for name, native_of, kw in RS_PATHS:
+        native = np.array([native_of(c) for c in range(C)], np.float64)
+        ratios = native / SPS
+        n_c = np.ceil(n_blocks * rows * ratios).astype(np.int64) + 16
+        chunk = np.ceil(rows * ratios).astype(np.int64)
+        t0 = time.perf_counter()
+        x, _ = rc_psk(native, int(n_c.max()), 4, rng,
+                      offset=RS_TAPS // 2 - 1)
+        for part in (1, 1j):
+            x += part * (WB_SIGMA / np.sqrt(2.0)) * rng.standard_normal(
+                x.shape, dtype=np.float32)
+        gen_s = time.perf_counter() - t0
+
+        def run(device, width, gate=None):
+            eng = ResampledBankEngine(cfg, width, native[:width],
+                                      block_symbols=S, device=device,
+                                      resampler_kwargs=kw)
+            eng.set_input_sri(SRI(stream_id=name, xdelta=1e-6))
+            fed = [0]
+            feed = eng._feed
+
+            def counted(blk):
+                fed[0] += 1
+                return feed(blk)
+
+            eng._feed = counted
+            pkts = []
+            with gate or contextlib.nullcontext():
+                for b in range(-(-int(n_c.max()) // int(chunk.min()))):
+                    for c in range(width):
+                        lo = b * chunk[c]
+                        if lo < n_c[c]:
+                            eng.push(c, x[c, lo:min(lo + chunk[c], n_c[c])])
+                    while (p := eng.step_packets()) is not None:
+                        pkts.append(p)
+            # The drained blocks end in windows of EOS zero padding alone,
+            # where every sample ties at 0: B1's carried sums pick by
+            # rounding residue and its plain version picks sample 0, so
+            # the gate holds the blocks before the flush.
+            return pkts + eng.flush_packets(), fed[0], eng
+
+        demod_kernel.demod_full_tm.launches = 0
+        gate = B1Gate(torch, f"resampled bank ({name})")
+        t0 = time.perf_counter()
+        gpu, fed, eng = run(dev, C, gate)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = demod_kernel.demod_full_tm.launches
+        bank = eng.resampler
+        path = ("grouped" if bank._groups is not None else
+                "uniform" if bank._uniform is not None else "gather")
+        if path != name or launches != fed - 1 or fed < n_blocks:
+            raise AssertionError(f"resampled bank ({name}): path {path}, "
+                                 f"B1 launched {launches} times for {fed} "
+                                 f"blocks (1 warm-up)")
+        scale = ratios[0] if np.allclose(ratios, ratios[0]) \
+            else np.median(ratios)
+        if eng.engine.assembler.sri.xdelta != 1e-6 * scale:
+            raise AssertionError(f"resampled bank ({name}): SRI xdelta "
+                                 f"{eng.engine.assembler.sri.xdelta}")
+        t0 = time.perf_counter()
+        cpu, _, _ = run("cpu", CPU_C)
+        cpu_s = time.perf_counter() - t0
+        # emitted symbols whose timing window still reads pushed samples
+        live = ((n_c - 2 * RS_TAPS) / ratios / SPS).astype(np.int64) - 2
+        err = compare_service(blank_tail(gpu, live), blank_tail(cpu, live),
+                              f"resampled bank ({name}) vs CPU", rows=CPU_C)
+
+        # --- times: push and step on the host clock, step on the device ---
+        tb = ResamplerBank(ratios, rows, device=dev, **kw)
+        acc = dict(push=0.0, step=0.0)
+        n_timed = 3
+        for c in range(C):
+            tb.push(c, x[c, :chunk[c]])
+        for b in range(1, n_timed + 2):
+            t = time.perf_counter()
+            for c in range(C):
+                tb.push(c, x[c, b * chunk[c]:(b + 1) * chunk[c]])
+            t1 = time.perf_counter()
+            got = tb.step_planes()
+            torch.cuda.synchronize()
+            if b > 1:                      # the first step warms up
+                acc["push"] += t1 - t
+                acc["step"] += time.perf_counter() - t1
+            if got is None:
+                raise AssertionError(f"resampler ({name}) not ready")
+        for c in range(C):                 # samples for the replayed step
+            tb.push(c, x[c, :2 * chunk[c]])
+        dev_ms = resampler_device_ms(torch, dev, tb, event_ms)
+        out[name] = dict(launches=launches, blocks=fed, max_err_vs_cpu=err,
+                         b1_gate=gate.stats)
+        log(json.dumps({"phase": "resampled_bank", "path": name,
+                        "channels": C, "native_sps": [float(native.min()),
+                                                      float(native.max())],
+                        "blocks": fed, "launches": launches,
+                        "packets_vs_cpu": err, "b1_gate": gate.stats,
+                        "signal_s": gen_s, "card_s": card_s, "cpu_s": cpu_s,
+                        "card": card}))
+        log(json.dumps({"phase": "timing", "what": f"resampler ({name})",
+                        "channels": C, "block_rows": rows,
+                        "host_ms_per_block": {k: v * 1e3 / n_timed
+                                              for k, v in acc.items()},
+                        "device_ms_per_block": dev_ms, "card": card}))
+    return out
+
+
+def probe_capture(rng):
+    """(C, PROBE_T) rectangular M-PSK (tests/test_probe.py's _rect_psk) at
+    PROBE_SNR_DB, channel c at sps PROBE_SPS[c % 4], M PROBE_M[c % 3] and a
+    CFO in (-0.0125, 0.0125); every 16th channel noise only.  Returns
+    (x, sps, m, cfo, noise mask)."""
+    c = np.arange(C)
+    sps = np.array(PROBE_SPS)[c % len(PROBE_SPS)]
+    m = np.array(PROBE_M)[c % len(PROBE_M)]
+    cfo = 0.025 * (((c * 37) % 101) / 100.0 - 0.5)
+    noise = c % 16 == 15
+    n = np.arange(PROBE_T)
+    sym = np.floor(n[None, :] / sps[:, None]).astype(np.int64)
+    idx = rng.integers(0, m[:, None], (C, int(PROBE_T / min(PROBE_SPS)) + 2))
+    ph = np.take_along_axis(idx, sym, axis=1) / m[:, None] \
+        + cfo[:, None] * n[None, :]
+    sigma = 10 ** (-PROBE_SNR_DB / 20) / np.sqrt(2)
+    x = np.exp(2j * np.pi * ph) + sigma * (
+        rng.standard_normal((C, PROBE_T))
+        + 1j * rng.standard_normal((C, PROBE_T)))
+    x[noise] = (rng.standard_normal((int(noise.sum()), PROBE_T))
+                + 1j * rng.standard_normal((int(noise.sum()), PROBE_T)))
+    return x.astype(np.complex64), sps, m, cfo, noise
+
+
+def probe_phase(torch, dev, card: str) -> dict:
+    """Phase 24c: estimate_baud and classify_psk on C x PROBE_T samples,
+    on the card and on the CPU.  Planted channels: sps within
+    PROBE_SPS_RTOL relative, M exact, CFO within PROBE_CFO_TOL, the
+    confidences within PROBE_CONF_RTOL relative; and as tests/test_probe.py
+    requires, sps within 0.05 of the planted (confidence > 10), M the
+    planted (confidence > 8), CFO within 2e-4; on noise channels no PSK
+    line (M 0), and every planted baud confidence over 5x the noise
+    channels' median one (a signal row against a noise row, as there).  Then each call's ms (numpy in, and the capture on the card)."""
+    from psk_soft_tpu_torch.ops.probe import classify_psk, estimate_baud
+
+    x, sps, m, cfo, noise = probe_capture(np.random.default_rng(IN_SEED + 2))
+    sig = ~noise
+    res = {}
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        b = estimate_baud(x, sps_min=2, sps_max=32, device=device)
+        t1 = time.perf_counter()
+        k = classify_psk(x, max_m=8, device=device)
+        res[device] = (b, k, t1 - t0, time.perf_counter() - t1)
+    (g_sps, g_conf), (g_m, g_cfo, g_mconf), *_ = res[dev]
+    (c_sps, c_conf), (c_m, c_cfo, c_mconf), *_ = res["cpu"]
+    vs_cpu = {
+        "sps_rel": float(np.max(np.abs(g_sps - c_sps)[sig] / c_sps[sig])),
+        "baud_conf_rel": float(np.max(np.abs(g_conf - c_conf)[sig]
+                                      / c_conf[sig])),
+        "m_differ": int((g_m != c_m)[sig].sum()),
+        "cfo": float(np.abs(g_cfo - c_cfo)[sig].max()),
+        "m_conf_rel": float(np.max(np.abs(g_mconf - c_mconf)[sig]
+                                   / c_mconf[sig]))}
+    if (vs_cpu["sps_rel"] > PROBE_SPS_RTOL or vs_cpu["m_differ"]
+            or vs_cpu["cfo"] > PROBE_CFO_TOL
+            or vs_cpu["baud_conf_rel"] > PROBE_CONF_RTOL
+            or vs_cpu["m_conf_rel"] > PROBE_CONF_RTOL):
+        raise AssertionError(f"probe card vs CPU: {vs_cpu}")
+    planted = {
+        "sps_err": float(np.abs(g_sps - sps)[sig].max()),
+        "baud_conf_min": float(g_conf[sig].min()),
+        "m_wrong": int((g_m != m)[sig].sum()),
+        "cfo_err": float(np.abs(g_cfo - cfo)[sig].max()),
+        "m_conf_min": float(g_mconf[sig].min()),
+        "noise_m_nonzero": int((g_m[noise] != 0).sum()),
+        "noise_baud_conf_median": float(np.median(g_conf[noise])),
+        "noise_baud_conf_max": float(g_conf[noise].max())}
+    if (planted["sps_err"] >= 0.05 or planted["baud_conf_min"] <= 10.0
+            or planted["m_wrong"] or planted["cfo_err"] >= 2e-4
+            or planted["m_conf_min"] <= 8.0 or planted["noise_m_nonzero"]
+            or planted["baud_conf_min"]
+            <= 5 * planted["noise_baud_conf_median"]):
+        raise AssertionError(f"probe: planted values not recovered: "
+                             f"{planted}")
+    xd = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    estimate_baud(xd, sps_min=2, sps_max=32)
+    t1 = time.perf_counter()
+    classify_psk(xd, max_m=8)
+    t2 = time.perf_counter()
+    times = {"estimate_baud_ms": res[dev][2] * 1e3,
+             "classify_psk_ms": res[dev][3] * 1e3,
+             "estimate_baud_on_card_ms": (t1 - t0) * 1e3,
+             "classify_psk_on_card_ms": (t2 - t1) * 1e3,
+             "cpu_estimate_baud_ms": res["cpu"][2] * 1e3,
+             "cpu_classify_psk_ms": res["cpu"][3] * 1e3}
+    log(json.dumps({"phase": "probe", "channels": C, "samples": PROBE_T,
+                    "noise_channels": int(noise.sum()), "vs_cpu": vs_cpu,
+                    "planted": planted, "card": card}))
+    log(json.dumps({"phase": "timing", "what": "probe", **times,
+                    "card": card}))
+    return dict(vs_cpu=vs_cpu, planted=planted, times=times)
+
+
+def queue_phase(torch, dev, card: str) -> dict:
+    """Phase 24d: a producer thread pushes QUEUE_PACKETS packets of one
+    stream (one S-symbol block each, the last EOS) into
+    NativePacketQueue while a FeedThread drives a StreamEngine on the
+    card; its outputs equal a CPU StreamEngine.process over the packets
+    the queue delivered (compare_service).  Then a forced overflow: the
+    next packet comes flagged and the card's engine resets, as the CPU
+    run does."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.runtime.engine import StreamEngine
+    from psk_soft_tpu_torch.runtime.native_queue import (FeedThread,
+                                                         NativePacketQueue)
+    from psk_soft_tpu_torch.runtime.streams import SRI
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    x = channels(QUEUE_PACKETS * S, n_ch=1)[0]
+    segs = np.split(x, QUEUE_PACKETS)
+    sri = SRI(stream_id="queued", xdelta=1e-6)
+
+    def feed_thread(q, eng, delivered):
+        outs = []
+        proc = eng.process
+
+        def recording(pkt):
+            delivered.append(pkt)
+            return proc(pkt)
+
+        eng.process = recording
+        th = FeedThread(q, eng, sink=outs.append)
+        th.start()
+        return th, outs
+
+    def cpu_run(delivered):
+        eng = StreamEngine(cfg, S, device="cpu")
+        return [eng.process(p) for p in delivered], eng
+
+    res = {}
+    # Main run: producer and feeder threads at once.
+    q = NativePacketQueue()
+    eng = StreamEngine(cfg, S, device=dev)
+    delivered = []
+    th, outs = feed_thread(q, eng, delivered)
+
+    def produce():
+        for i, seg in enumerate(segs):
+            q.push(seg, sri, t=i * seg.size * 1e-6,
+                   eos=i == QUEUE_PACKETS - 1)
+
+    prod = threading.Thread(target=produce)
+    t0 = time.perf_counter()
+    prod.start()
+    prod.join(timeout=60)
+    th.join(timeout=300)
+    dt = time.perf_counter() - t0
+    if prod.is_alive() or th.is_alive() or len(delivered) != QUEUE_PACKETS:
+        raise AssertionError(f"queue: {len(delivered)} packets delivered")
+    ref, ceng = cpu_run(delivered)
+    res["err"] = compare_service(outs, ref, "queue -> FeedThread vs CPU")
+    if (dataclasses.asdict(eng.metrics) != dataclasses.asdict(ceng.metrics)
+            or q.stats().popped != QUEUE_PACKETS
+            or eng.metrics.symbols_out != QUEUE_PACKETS * S - NUM_AVG + 1):
+        raise AssertionError(f"queue: metrics {eng.metrics} vs "
+                             f"{ceng.metrics}")
+    res["samples_per_s"] = x.size / dt
+    q.close()
+
+    # Forced overflow: 5 packets fit, the 6th push flushes the backlog.
+    q = NativePacketQueue(max_packets=5)
+    flags = [q.push(seg, sri, t=float(i)) for i, seg in enumerate(segs[:8])]
+    eng = StreamEngine(cfg, S, device=dev)
+    delivered = []
+    th, outs = feed_thread(q, eng, delivered)
+    q.push(segs[8], sri, t=8.0, eos=True)
+    th.join(timeout=300)
+    if th.is_alive():
+        raise AssertionError("queue: the feeder did not reach EOS")
+    ref, ceng = cpu_run(delivered)
+    res["overflow_err"] = compare_service(outs, ref, "queue overflow vs CPU")
+    flagged = [p.input_queue_flushed for p in delivered]
+    if (flags != [False] * 5 + [True] + [False] * 2
+            or flagged != [True] + [False] * 3 or eng.metrics.resets != 1
+            or dataclasses.asdict(eng.metrics)
+            != dataclasses.asdict(ceng.metrics)
+            or q.stats().dropped_packets != 5):
+        raise AssertionError(f"queue overflow: pushes {flags}, delivered "
+                             f"{flagged}, resets {eng.metrics.resets}")
+    q.close()
+    log(json.dumps({"phase": "queue", "packets": QUEUE_PACKETS,
+                    "vs_cpu": res["err"], "overflow_vs_cpu":
+                    res["overflow_err"], "resets_after_overflow": 1,
+                    "samples_per_s": res["samples_per_s"], "card": card}))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4137,9 +4791,20 @@ def main() -> int:
     group22 = group_sync_phase(torch, dev, card)
     front23 = front_receiver_phase(torch, dev, card, profile_engine,
                                    receiver22)
+    wide24 = wideband_phase(torch, dev, card, event_ms)
+    resampled24 = resampled_phase(torch, dev, card, event_ms)
+    probe24 = probe_phase(torch, dev, card)
+    queue24 = queue_phase(torch, dev, card)
+    log(json.dumps({"phase": "input_side", "wideband_samples_per_s":
+                    wide24["samples_per_s"], "probe_ms": probe24["times"],
+                    "queue_samples_per_s": queue24["samples_per_s"],
+                    "card": card}))
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
-                    "front_receiver": front23["b1_gate"]}))
+                    "front_receiver": front23["b1_gate"],
+                    "wideband": wide24["b1_gate"],
+                    **{f"resampled_{k}": v["b1_gate"]
+                       for k, v in resampled24.items()}}))
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},
@@ -4153,7 +4818,12 @@ def main() -> int:
                                         for k, v in parallel21.items()},
                     "receiver_full": receiver22["launches"],
                     "group_sync_frames": group22,
-                    "receiver_front_ends": front23["launches"]}))
+                    "receiver_front_ends": front23["launches"],
+                    "wideband_channelizer": {
+                        "demod_full_tm": wide24["launches"]},
+                    **{f"resampled_bank_{k}": {"demod_full_tm":
+                                               v["launches"]}
+                       for k, v in resampled24.items()}}))
 
     # --- the kernels line ---
     t = timings[False]

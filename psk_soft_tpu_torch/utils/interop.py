@@ -172,3 +172,18 @@ def front_chain_state_to_numpy(state: FrontChainState) -> dict:
                       "phase": fr.phase.cpu().numpy(),
                       "agc": None if fr.agc is None else _to_numpy(fr.agc)},
             **chain_state_to_numpy(state)}
+
+
+def channelizer_carry_from_numpy(carry, device) -> torch.Tensor:
+    """A channelizer's branch-row carry on ``device``: (K-1, C) complex64
+    for ops/channelizer.channelize_block, (2K-1, C/2) for
+    channelize_block_os2 (e.g. a JAX front end's carry as numpy), so a
+    stream the JAX package started continues in the port."""
+    a = np.array(carry, np.complex64)
+    if a.ndim != 2:
+        raise ValueError(f"channelizer carry must be 2-D, got {a.shape}")
+    return torch.from_numpy(a).to(device)
+
+
+def channelizer_carry_to_numpy(carry: torch.Tensor) -> np.ndarray:
+    return carry.cpu().numpy()
