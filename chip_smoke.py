@@ -182,7 +182,26 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      the channelizer's device ms a block beside its bound and the
      upload's ms, the wideband path's samples/s, each resampler path's
      host and device ms a block, the probe's ms.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-24.  Each
+ 25. the TX and evaluation layer (ROADMAP A.9, A.10): (a) the step
+     factories at 1024 x 512: make_scanned_full_demod_fn over 4 blocks
+     bit-equal (torch.equal, every output and the final carry) to 4
+     demod_block_full calls, make_mixed_full_demod_fn one block at config
+     4's widths, B1 launched 4 and 1 times; (b) eval/coded.
+     measure_chain_fer at 1024 channels, 3 blocks, at
+     tests/test_coded_ber.py's points and gates (12 dB with a CFO spread,
+     8 dB, -2 dB, the acquisition leg), B1 and B2 once a block, the 8 dB
+     point at 128 channels equal on the card and the CPU; (c)
+     measure_coded_ber on B2 at tests/test_coded_ber.py's points, each
+     equal to the CPU, B2 once a point; (d) BASELINE configs 1-4 at full
+     size, each pass; (e) the CLI as subprocesses (selftest, baseline
+     --config 1, ber --esn0 8,11 -M 4, gen-frames), rc 0, the gen-frames
+     capture through build_receiver on the card with every truth frame
+     decoded.  Every B1 launch of (a) and (b) is held by B1Gate (the
+     chain runs without debug ports: the gate adds a checking launch with
+     them).  Times: seconds and information bits/s per chain-FER point,
+     coded bits/s, measure_ber's symbols/s, seconds per config, the
+     phase's total.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-25.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -3440,15 +3459,24 @@ class B1Gate:
     rules on noise; soft within SOFT_TOL and phase within PHASE_TOL at the
     outputs whose tracker window (phase_avg + the trend) holds no differing
     pick (the others are counted, with their largest errors).  On ``noise_channels`` (no signal) bits, soft
-    and phase are counted, not held.  Launch counts stay the kernel's
-    (the plain version does not count)."""
+    and phase are counted, not held.  With ``tied_bits`` (streams at low
+    SNR, where another sample is another value and can slip the tracker a
+    whole 2*pi/M turn for the rest of the block) a differing pick taints
+    its channel's outputs from there to the end of the block, and bits are
+    held where soft and phase are and counted at the tainted outputs.  A
+    path that runs without debug ports gets one more launch with them on
+    (a checking launch: the counts are put back), held bit-equal to the
+    path's own.  Launch counts stay the kernel's (the plain version does
+    not count)."""
 
-    def __init__(self, torch, label: str, noise_channels=()):
+    def __init__(self, torch, label: str, noise_channels=(),
+                 tied_bits: bool = False):
         from psk_soft_tpu_torch.ops.cuda import demod_kernel
 
         self.torch, self.label, self.dk = torch, label, demod_kernel
         self.kernel = demod_kernel.demod_full_tm
         self.noise = sorted(noise_channels)
+        self.tied_bits = tied_bits
         from psk_soft_tpu_torch.ops.phase import UNWRAP_TREND_LEN
         self.trend = UNWRAP_TREND_LEN
         self.stats = dict(launches_checked=0, outputs=0, index_differ=0,
@@ -3475,6 +3503,19 @@ class B1Gate:
     def _check(self, win_re, win_im, x_re, x_im, planes, **kw):
         torch = self.torch
         got = self.kernel(win_re, win_im, x_re, x_im, planes, **kw)
+        path_out = got
+        if not kw.get("debug_ports", True):
+            kw = dict(kw, debug_ports=True)
+            k = self.kernel
+            counts = (k.launches, dict(k.mode_launches))
+            got = k(win_re, win_im, x_re, x_im, planes, **kw)
+            k.launches = counts[0]
+            k.mode_launches.update(counts[1])
+            for i in (0, 1, 3, 5):
+                if not torch.equal(path_out[i], got[i]):
+                    raise AssertionError(f"{self.label}: B1 with debug "
+                                         f"ports differs from the path's "
+                                         f"launch (output {i})")
         ref = self.dk.demod_full_tm_ref(win_re, win_im, x_re, x_im, planes,
                                         **kw)
         if not kw.get("debug_ports", True) or kw.get("mf_taps"):
@@ -3486,7 +3527,8 @@ class B1Gate:
         sig[self.noise] = False
         g_idx, r_idx = got[4].long(), ref[4].long()
         same = g_idx == r_idx
-        if not torch.equal(got[3][:, sig], ref[3][:, sig]):
+        if not self.tied_bits and not torch.equal(got[3][:, sig],
+                                                  ref[3][:, sig]):
             raise AssertionError(f"{self.label}: B1 bits differ from the "
                                  f"plain version at "
                                  f"{int((got[3] != ref[3])[:, sig].sum())} "
@@ -3500,7 +3542,7 @@ class B1Gate:
                         differ.int().cumsum(0)])
         low = torch.clamp(torch.arange(1, s_n + 1, device=cs.device) - span
                           - 1, min=0)
-        tainted = (cs[1:] - cs[low]) > 0
+        tainted = (cs[1:] - (0 if self.tied_bits else cs[low])) > 0
         keep = ~tainted & sig[None, :]
         st = self.stats
         for k, (a, b) in (("soft_max_err", (got[0], ref[0])),
@@ -3515,6 +3557,15 @@ class B1Gate:
                                           float(d[moved].max()))
         st["near_tie_outputs"] = st.get("near_tie_outputs", 0) + int(
             (tainted & sig[None, :]).sum())
+        if self.tied_bits:
+            bits_differ = got[3] != ref[3]
+            if bool((bits_differ & keep).any()):
+                raise AssertionError(
+                    f"{self.label}: B1 bits differ from the plain version "
+                    f"at {int((bits_differ & keep).sum())} outputs no "
+                    f"differing pick moved")
+            st["near_tie_bits_differ"] = st.get("near_tie_bits_differ", 0) \
+                + int((bits_differ & tainted & sig[None, :]).sum())
         n_differ = int(differ.sum())
         if n_differ:
             # Exact window sums of the [window | block] energies.
@@ -3541,7 +3592,7 @@ class B1Gate:
         if st["soft_max_err"] > SOFT_TOL or st["phase_max_err"] > PHASE_TOL:
             raise AssertionError(f"{self.label}: B1 against its plain "
                                  f"version: {st}")
-        return got
+        return path_out
 
 
 # --- phase 23: the front-end receiver (ROADMAP A.8 part 1) ------------------
@@ -4506,6 +4557,349 @@ def queue_phase(torch, dev, card: str) -> dict:
     return res
 
 
+# --- phase 25: the TX and evaluation layer (ROADMAP A.9, A.10) --------------
+
+EVAL_K = 4                    # 25a: blocks through the scanned factory
+FER_BLOCKS = 3                # 25b: blocks a chain-FER point
+FER_SEED = 3                  # tests/test_coded_ber.py:78-116's seed
+# tests/test_coded_ber.py's operating points: (name, Es/N0, keywords)
+FER_POINTS = (("hi", 12.0, dict(cfo=2e-5)), ("mid", 8.0, {}),
+              ("lo", -2.0, {}), ("acquisition", 12.0, dict(front_cfo=0.02)))
+CLI_SYMBOLS = 4096            # 25e: gen-frames capture, symbols a channel
+CLI_INTERVAL = 600            # its frame interval (first frame after warm-up)
+
+
+def kernel_counts():
+    """B1's and B2-B4's launch counters, by name."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, viterbi_kernel
+
+    return {"demod_full_tm": demod_kernel.demod_full_tm,
+            "viterbi_fused": viterbi_kernel.viterbi_fused,
+            "viterbi_acs": viterbi_kernel.viterbi_acs,
+            "viterbi_traceback": viterbi_kernel.viterbi_traceback}
+
+
+def counted(torch, fn):
+    """Run ``fn`` with every kernel count set to 0 just before it; returns
+    (its result, the counts just after, host seconds)."""
+    wrappers = kernel_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return res, {k: w.launches for k, w in wrappers.items()}, dt
+
+
+def factories_phase(torch, dev, card) -> dict:
+    """25a: models/full.make_scanned_full_demod_fn over EVAL_K blocks of
+    1024 x 512 (cell 1's config), every output and the final carry
+    bit-equal (torch.equal) to EVAL_K demod_block_full calls;
+    make_mixed_full_demod_fn one block at config 4's widths.  Every B1
+    launch of both held by B1Gate; B1 launched EVAL_K times and once."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models import full
+    from psk_soft_tpu_torch.models.mixed import MixedParams
+
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    state0, x_re, x_im = b1_warm(torch, dev, C, SPS, NUM_AVG, EVAL_K * S)
+    xs_re = x_re.reshape(EVAL_K, S * SPS, C)
+    xs_im = x_im.reshape(EVAL_K, S * SPS, C)
+    scan = full.make_scanned_full_demod_fn(cfg)
+    with B1Gate(torch, "scanned full factory") as gate:
+        (st, out), launches, _ = counted(torch, lambda: scan(state0, xs_re,
+                                                             xs_im))
+    res = {"scanned": launches["demod_full_tm"], "gate": gate.stats}
+    one = state0
+    for k in range(EVAL_K):
+        one, o = full.demod_block_full(cfg, one, xs_re[k], xs_im[k])
+        for name, a, b in zip(o._fields, o, out):
+            if not torch.equal(a, b[k]):
+                raise AssertionError(f"25a: scanned {name} of block {k} "
+                                     f"differs from demod_block_full's")
+    for name, a, b in zip(one._fields, one, st):
+        if not torch.equal(a, b):
+            raise AssertionError(f"25a: scanned carry {name} differs")
+
+    cfg4 = DemodConfig(sps=SPS, num_avg=50, constellation_size=4,
+                       phase_avg=20)
+    ms, diffs = mixed_modes(C)
+    params = MixedParams.make(ms, diffs, dev)
+    state4, y_re, y_im, _ = mode_inputs(
+        torch, dev, cfg4, mixed_channels(WARM + S, ms, diffs), params=params)
+    step = full.make_mixed_full_demod_fn(cfg4)
+    with B1Gate(torch, "mixed full factory") as gate4:
+        (_, mout), mlaunch, _ = counted(torch, lambda: step(state4, y_re,
+                                                            y_im))
+    if mout.soft_re.shape != (S, C) or not bool(
+            torch.isfinite(mout.soft_re).all()):
+        raise AssertionError("25a: mixed factory outputs")
+    res["mixed"] = mlaunch["demod_full_tm"]
+    res["mixed_gate"] = gate4.stats
+    if (res["scanned"], res["mixed"]) != (EVAL_K, 1) or (
+            gate.stats["launches_checked"], gate4.stats["launches_checked"]
+    ) != (EVAL_K, 1):
+        raise AssertionError(f"25a: B1 launches {res}")
+    log(json.dumps({"phase": "eval_factories", "channels": C, "symbols": S,
+                    "blocks": EVAL_K, "launches": {
+                        "scanned": res["scanned"], "mixed": res["mixed"]},
+                    "bit_equal_to_per_block_calls": True,
+                    "b1_gate": gate.stats, "mixed_b1_gate": gate4.stats,
+                    "card": card}))
+    return res
+
+
+def chain_fer_phase(torch, dev, card) -> dict:
+    """25b: eval/coded.measure_chain_fer at 1024 channels, FER_BLOCKS
+    blocks, at tests/test_coded_ber.py's points and gates (12 dB with a
+    CFO spread: FER <= 0.01, every frame found; 8 dB: <= 0.08; -2 dB: >=
+    0.3 and lo > mid >= hi; the acquisition leg at front_cfo 0.02: <=
+    0.01, every frame found), every B1 launch held by B1Gate (bits held
+    where no near-tie pick moved the tracker: ``tied_bits``), B1's and
+    B2's launches counted per point; the 8 dB point at 128 channels equal
+    (every ChainFerPoint field) on the card and on the CPU."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.eval.coded import measure_chain_fer
+    from psk_soft_tpu_torch.models.chain import chain_msg_bits
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+
+    # tests/test_coded_ber.py's chain: UW 32 drawn from seed 31.
+    uw = np.random.default_rng(31).integers(0, 4, 32)
+    args = (DemodConfig(sps=8, num_avg=40, constellation_size=4,
+                        phase_avg=30),
+            FrameFormat(uw=tuple(int(v) for v in uw), payload=48, m=4,
+                        threshold=0.7), CODE_K7, CRC16_CCITT)
+    n_msg = chain_msg_bits(*args[1:])
+    res, pts = {}, {}
+    for name, esn0, kw in FER_POINTS:
+        with B1Gate(torch, f"chain FER {name}", tied_bits=True) as gate:
+            p, launches, dt = counted(torch, lambda: measure_chain_fer(
+                *args, esn0, channels=C, blocks=FER_BLOCKS, seed=FER_SEED,
+                device=dev, **kw))
+        if (launches["demod_full_tm"], launches["viterbi_fused"]) != (
+                FER_BLOCKS, FER_BLOCKS) or gate.stats[
+                    "launches_checked"] != FER_BLOCKS:
+            raise AssertionError(f"25b {name}: launches {launches}")
+        pts[name] = p
+        res[name] = dict(point=p._asdict(), fer=p.fer, launches={
+            k: v for k, v in launches.items() if v}, seconds=dt,
+            infobits_per_s=p.frames * n_msg / dt, b1_gate=gate.stats)
+        log(json.dumps({"phase": "eval_chain_fer", "point": name,
+                        "esn0_db": esn0, **kw, "channels": C,
+                        "blocks": FER_BLOCKS, **res[name], "card": card}))
+    hi, mid, lo, acq = (pts[k] for k in ("hi", "mid", "lo", "acquisition"))
+    if not (hi.fer <= 0.01 and hi.found == hi.frames and mid.fer <= 0.08
+            and lo.fer >= 0.3 and lo.fer > mid.fer >= hi.fer
+            and acq.fer <= 0.01 and acq.found == acq.frames
+            and (lo.overflow == 0 or lo.overflow < lo.frames)):
+        raise AssertionError(f"25b: chain FER gates: {pts}")
+    card_pt = measure_chain_fer(*args, 8.0, channels=CPU_C,
+                                blocks=FER_BLOCKS, seed=FER_SEED, device=dev)
+    cpu_pt = measure_chain_fer(*args, 8.0, channels=CPU_C,
+                               blocks=FER_BLOCKS, seed=FER_SEED,
+                               device="cpu")
+    if tuple(card_pt) != tuple(cpu_pt):
+        raise AssertionError(f"25b: 128 channels, card {card_pt} vs CPU "
+                             f"{cpu_pt}")
+    res["card_vs_cpu_128"] = card_pt._asdict()
+    log(json.dumps({"phase": "eval_chain_fer", "point": "mid, 128 channels",
+                    "card": card_pt._asdict(), "cpu": cpu_pt._asdict(),
+                    "equal": True}))
+    return res
+
+
+def coded_ber_phase(torch, dev, card) -> dict:
+    """25c: eval/coded.measure_coded_ber on B2 at tests/test_coded_ber.py's
+    points (K7 QPSK 5 dB, 100k bits; K7 BPSK at -1 and 0 dB, 120k bits; K3
+    BPSK 1 dB, 40k; K7 punctured 2/3 QPSK 6 dB, 30k), each CodedBerPoint
+    equal field by field to the same call on the CPU, B2 launched once a
+    point and B3/B4 never, and the JAX tests' assertions on the card's
+    numbers."""
+    from psk_soft_tpu_torch.eval.ber import theoretical_ber
+    from psk_soft_tpu_torch.eval.coded import measure_coded_ber, union_bound
+    from psk_soft_tpu_torch.ops.fec import (CODE_K3, CODE_K7, PUNCTURE_2_3,
+                                            ConvCode, conv_encode)
+
+    punct = ConvCode(7, (0o171, 0o133), PUNCTURE_2_3)
+    cases = (("k7_qpsk_5db", CODE_K7, 4, 5.0, 100_000, 1),
+             ("k7_bpsk_-1db", CODE_K7, 2, -1.0, 120_000, 2),
+             ("k7_bpsk_0db", CODE_K7, 2, 0.0, 120_000, 2),
+             ("k3_bpsk_1db", CODE_K3, 2, 1.0, 40_000, 4),
+             ("k7_2/3_qpsk_6db", punct, 4, 6.0, 30_000, 5))
+    res = {}
+    for name, code, m, esn0, nbits, seed in cases:
+        run = lambda dv: measure_coded_ber(  # noqa: E731
+            code, m, esn0, num_bits=nbits, seed=seed, device=dv)
+        p, launches, dt = counted(torch, lambda: run(dev))
+        ref = run("cpu")
+        if dataclasses.astuple(p) != dataclasses.astuple(ref):
+            raise AssertionError(f"25c {name}: card {p} vs CPU {ref}")
+        if (launches["viterbi_fused"], launches["viterbi_acs"],
+                launches["viterbi_traceback"]) != (1, 0, 0):
+            raise AssertionError(f"25c {name}: launches {launches}")
+        coded_bits = p.n_frames * conv_encode(
+            code, np.zeros(p.n_bits // p.n_frames, np.int8)).shape[-1]
+        res[name] = dict(point=dataclasses.asdict(p), seconds=dt,
+                         coded_bits_per_s=coded_bits / dt,
+                         infobits_per_s=p.n_bits / dt,
+                         launches={"viterbi_fused": 1})
+        log(json.dumps({"phase": "eval_coded_ber", "case": name,
+                        **res[name], "card": card}))
+    pts = {k: v["point"] for k, v in res.items()}
+    q = pts["k7_qpsk_5db"]
+    uncoded = float(theoretical_ber(4, np.asarray(5.0)))
+    ok = abs(q["ebn0_db"] - 5.0) < 1e-6 and q["ber"] < uncoded / 20
+    for k in ("k7_bpsk_-1db", "k7_bpsk_0db"):
+        b = pts[k]
+        bound = float(union_bound(CODE_K7, b["ebn0_db"]))
+        ok &= bound / 10.0 <= b["ber"] <= 2.0 * bound + 5.0 / b["n_bits"]
+    k3 = pts["k3_bpsk_1db"]
+    ok &= (abs(k3["ebn0_db"] - (1.0 + 10 * np.log10(2.0))) < 1e-6
+           and k3["ber"] < float(theoretical_ber(2, np.asarray(1.0))))
+    pp = pts["k7_2/3_qpsk_6db"]
+    ok &= (abs(pp["ebn0_db"] - (6.0 - 10 * np.log10(4 / 3))) < 1e-3
+           and 0 <= pp["ber"] < 0.02)
+    if not ok:
+        raise AssertionError(f"25c: coded-BER gates: {pts}")
+    return res
+
+
+def baseline_phase(torch, dev, card) -> dict:
+    """25d: BASELINE configs 1-4 at full size (quick=False) on the card,
+    each pass: true; seconds per config and measure_ber's symbols/s."""
+    from psk_soft_tpu_torch.eval.baseline_configs import run_config
+
+    res = {}
+    for n in (1, 2, 3, 4):
+        r, _, dt = counted(torch, lambda: run_config(n, quick=False,
+                                                     device=dev))
+        if not r["pass"]:
+            raise AssertionError(f"25d: config {n}: {r}")
+        res[n] = dict(result=r, seconds=dt)
+    # measure_ber's symbols: config 2 one 100k-symbol point, config 3 seven
+    # of 50k.
+    ber_rate = {"config2": 100_000 / res[2]["seconds"],
+                "config3": 7 * 50_000 / res[3]["seconds"]}
+    log(json.dumps({"phase": "eval_baseline", "full_size": True,
+                    "configs": {n: {"pass": v["result"]["pass"],
+                                    "seconds": v["seconds"]}
+                                for n, v in res.items()},
+                    "results": {n: v["result"] for n, v in res.items()},
+                    "measure_ber_symbols_per_s": ber_rate, "card": card}))
+    return {"seconds": {n: v["seconds"] for n, v in res.items()},
+            "measure_ber_symbols_per_s": ber_rate}
+
+
+def cli_phase(torch, dev, card) -> dict:
+    """25e: ``python -m psk_soft_tpu_torch`` as subprocesses, started
+    together: selftest, baseline --config 1, ber --esn0 8,11 -M 4 and
+    gen-frames (K7, CRC-16, PRBS15, Gray, 128 channels) into a temporary
+    file, each rc 0; the capture read back through build_receiver
+    (engine="full") on the card, every truth frame decoded once with the
+    CRC green and exact info bits."""
+    import os
+    import tempfile
+
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.scramble import prbs15
+    from psk_soft_tpu_torch.runtime.receiver import build_receiver
+
+    uw = [int(v) for v in np.random.default_rng(15).integers(0, 4, 32)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, truth = os.path.join(tmp, "link.cf32"), os.path.join(
+            tmp, "truth.jsonl")
+        cmds = {
+            "selftest": ["selftest"],
+            "baseline": ["baseline", "--config", "1"],
+            "ber": ["ber", "--esn0", "8,11", "-M", "4"],
+            "gen-frames": ["gen-frames", "--out", cap, "--truth", truth,
+                           "--channels", str(CPU_C), "--symbols",
+                           str(CLI_SYMBOLS), "--sps", str(SPS), "-M", "4",
+                           "--uw", ",".join(map(str, uw)),
+                           "--frame-payload", "64", "--fec", "k7",
+                           "--crc", "crc16", "--scramble", "prbs15",
+                           "--labeling", "gray", "--frame-interval",
+                           str(CLI_INTERVAL), "--snr", "18", "--seed", "3"]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "psk_soft_tpu_torch"] + v, cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for k, v in cmds.items()}
+        outs = {}
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            outs[k] = (p.returncode, out, err)
+        cli_s = time.perf_counter() - t0
+        bad = {k: v for k, v in outs.items() if v[0] != 0}
+        if bad:
+            raise AssertionError(f"25e: CLI rc != 0: {bad}")
+        if not outs["selftest"][1].strip().endswith("selftest PASS") or \
+                not json.loads(outs["baseline"][1])["pass"] or \
+                len(outs["ber"][1].splitlines()) != 2:
+            raise AssertionError(f"25e: CLI outputs {outs}")
+        wire = np.fromfile(cap, np.complex64).reshape(-1, CPU_C)
+        want = {}
+        for line in open(truth).read().splitlines():
+            r = json.loads(line)
+            want[(r["channel"], r["start"])] = np.asarray(r["info_bits"],
+                                                          np.int8)
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rx = build_receiver(cfg, CPU_C, engine="full", block_symbols=S, uw=uw,
+                        frame_payload=64, fec=CODE_K7, fec_labeling="gray",
+                        descramble=prbs15(), crc=CRC16_CCITT, device=dev)
+    need = S * SPS
+    frames = []
+    for b in range(CLI_SYMBOLS // S):
+        blk = wire[b * need:(b + 1) * need]
+        rx.engine.push_planes(
+            torch.from_numpy(np.ascontiguousarray(blk.real)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(blk.imag)).to(dev))
+        rx.engine.step_packets()
+        frames += rx.pop_frames()
+    rx.engine.flush_packets()
+    frames += rx.pop_frames()
+    got = {}
+    for f in frames:
+        key = (f.channel, f.start)
+        if key in got or key not in want or not f.crc_ok or f.suspect \
+                or not np.array_equal(f.info_bits, want[key]):
+            raise AssertionError(f"25e: frame {key}: CRC {f.crc_ok}")
+        got[key] = f
+    if set(got) != set(want):
+        raise AssertionError(f"25e: {len(set(want) - set(got))} of "
+                             f"{len(want)} truth frames missed")
+    log(json.dumps({"phase": "eval_cli", "rc": {k: v[0] for k, v in
+                                                outs.items()},
+                    "cli_seconds_together": cli_s,
+                    "gen_frames_decoded": len(got), "truth_frames": len(want),
+                    "card": card}))
+    return {"cli_seconds": cli_s, "frames": len(got)}
+
+
+def eval_phase(torch, dev, card) -> dict:
+    """Phase 25 (25a-25e), with its total time."""
+    t0 = time.perf_counter()
+    res = {"factories": factories_phase(torch, dev, card),
+           "chain_fer": chain_fer_phase(torch, dev, card),
+           "coded_ber": coded_ber_phase(torch, dev, card),
+           "baseline": baseline_phase(torch, dev, card),
+           "cli": cli_phase(torch, dev, card)}
+    res["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "eval", "seconds": res["seconds"],
+                    "card": card}))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4799,12 +5193,16 @@ def main() -> int:
                     wide24["samples_per_s"], "probe_ms": probe24["times"],
                     "queue_samples_per_s": queue24["samples_per_s"],
                     "card": card}))
+    eval25 = eval_phase(torch, dev, card)
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
                     "front_receiver": front23["b1_gate"],
                     "wideband": wide24["b1_gate"],
                     **{f"resampled_{k}": v["b1_gate"]
-                       for k, v in resampled24.items()}}))
+                       for k, v in resampled24.items()},
+                    "eval_factories": eval25["factories"]["gate"],
+                    **{f"eval_chain_fer_{k}": eval25["chain_fer"][k][
+                        "b1_gate"] for k, _, _ in FER_POINTS}}))
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},
@@ -4823,7 +5221,15 @@ def main() -> int:
                         "demod_full_tm": wide24["launches"]},
                     **{f"resampled_bank_{k}": {"demod_full_tm":
                                                v["launches"]}
-                       for k, v in resampled24.items()}}))
+                       for k, v in resampled24.items()},
+                    "scanned_full_factory": {"demod_full_tm": eval25[
+                        "factories"]["scanned"]},
+                    "mixed_full_factory": {"demod_full_tm[mixed]": eval25[
+                        "factories"]["mixed"]},
+                    **{f"chain_fer_{k}": eval25["chain_fer"][k]["launches"]
+                       for k, _, _ in FER_POINTS},
+                    "coded_ber": {k: v["launches"] for k, v in
+                                  eval25["coded_ber"].items()}}))
 
     # --- the kernels line ---
     t = timings[False]

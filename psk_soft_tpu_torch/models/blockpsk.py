@@ -13,6 +13,7 @@ the FIR with ``unfold`` and a float32 matmul (no TF32 on any device).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -20,7 +21,7 @@ import torch
 from ..config import DemodConfig
 from ..ops import linear_fit, phase as phase_ops
 from .common import correct_and_slice, maybe_matched_filter, timing_frontend
-from .psk import DemodOutputs
+from .psk import DemodOutputs, bank, one_chain
 
 
 class FFState(NamedTuple):
@@ -38,22 +39,26 @@ class FFState(NamedTuple):
     mf_tail: torch.Tensor       # (C, mf_ntaps-1 or 0) complex64
 
 
-def ff_init(cfg: DemodConfig, channels: int, device) -> FFState:
-    """Fresh carry for ``channels`` chains on ``device``."""
+def ff_init(cfg: DemodConfig, channels: int | None = None,
+            device="cuda") -> FFState:
+    """Fresh carry for ``channels`` chains on ``device``; ``channels=None``
+    is one chain without the channel axis (the JAX ``ff_init(cfg)``), the
+    carry of :func:`make_ff_demod_fn`'s single-chain step."""
     a1 = max(cfg.num_avg - 1, 0)
     n1 = max(cfg.phase_avg - 1, 0)
+    lead = () if channels is None else (channels,)
     c64 = dict(dtype=torch.complex64, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return FFState(
-        win_samples=torch.zeros((channels, a1, cfg.sps), **c64),
-        win_energy=torch.zeros((channels, a1, cfg.sps), **f32),
-        seen=torch.zeros((channels,), **i32),
-        phase_hist=torch.zeros((channels, n1), **f32),
-        phase_count=torch.zeros((channels,), **i32),
-        last_phase=torch.zeros((channels,), **f32),
-        last_any=torch.ones((channels,), **c64),
-        mf_tail=torch.zeros((channels, max(cfg.mf_ntaps - 1, 0)), **c64),
+        win_samples=torch.zeros(lead + (a1, cfg.sps), **c64),
+        win_energy=torch.zeros(lead + (a1, cfg.sps), **f32),
+        seen=torch.zeros(lead, **i32),
+        phase_hist=torch.zeros(lead + (n1,), **f32),
+        phase_count=torch.zeros(lead, **i32),
+        last_phase=torch.zeros(lead, **f32),
+        last_any=torch.ones(lead, **c64),
+        mf_tail=torch.zeros(lead + (max(cfg.mf_ntaps - 1, 0),), **c64),
     )
 
 
@@ -245,3 +250,36 @@ def demod_block_ff(cfg: DemodConfig, state: FFState, x: torch.Tensor,
             valid=valid,
         )
     return new_state, outputs
+
+
+def make_ff_demod_fn(cfg: DemodConfig, channels: int | None = None, *,
+                     assume_steady: bool = False):
+    """The feed-forward block step ``fn(state, x) -> (state,
+    DemodOutputs)``: one chain ((T,) in with an :func:`ff_init` ``(cfg)``
+    carry, (S,) out) or, with ``channels`` set, a bank with a leading
+    channel axis.  ``x`` may be numpy (copied to the state's device) or a
+    tensor on the state's device.  The JAX ``jit`` argument has no
+    counterpart."""
+    step = functools.partial(demod_block_ff, cfg,
+                             assume_steady=assume_steady)
+    if channels is None:
+        return functools.partial(one_chain, step)
+    return functools.partial(bank, step, int(channels))
+
+
+def make_scanned_ff_demod_fn(cfg: DemodConfig, channels: int | None = None,
+                             *, assume_steady: bool = False):
+    """Many block steps in one call: ``fn(state, xs)`` with ``xs`` shaped
+    (K, T) (or (K, C, T) with ``channels``) runs the carried step over the
+    leading axis, a loop where JAX scans, and returns (state, DemodOutputs
+    stacked field by field on a leading K axis)."""
+    step = make_ff_demod_fn(cfg, channels, assume_steady=assume_steady)
+
+    def run(state: FFState, xs):
+        outs = []
+        for k in range(len(xs)):
+            state, out = step(state, xs[k])
+            outs.append(out)
+        return state, DemodOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+    return run

@@ -1,5 +1,5 @@
 """Single-kernel steady-state pipeline built on kernel B1
-(port of ``psk_soft_tpu/models/full.py:24-306, 352-398``).
+(port of ``psk_soft_tpu/models/full.py:24-398``).
 
 Usage: run the feed-forward pipeline (models/blockpsk) through warm-up,
 convert the converged carry with :func:`full_from_ff`, then stream
@@ -15,6 +15,7 @@ JAX signature and calls the same launch.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -271,6 +272,44 @@ def demod_block_full_rolling(cfg: DemodConfig, planes: torch.Tensor,
                       win_im=prev_im[prev_im.shape[0] - keep:], planes=planes)
     new_state, out = demod_block_full(cfg, state, x_re, x_im, **kwargs)
     return new_state.planes, out
+
+
+def make_full_demod_fn(cfg: DemodConfig, *, in_scale: float = 1.0,
+                       pack_out: bool | None = None,
+                       soft_i8_scale: float | None = None):
+    """The steady-state step ``fn(state, x_re, x_im) -> (state,
+    FullOutputs)``: :func:`demod_block_full` with the options closed over,
+    one B1 launch a call.  The JAX ``s_tile``, ``interpret`` and ``jit``
+    arguments are TPU-only and not taken (the kernel runs each block
+    whole)."""
+    return functools.partial(demod_block_full, cfg, in_scale=in_scale,
+                             pack_out=pack_out, soft_i8_scale=soft_i8_scale)
+
+
+def make_mixed_full_demod_fn(cfg: DemodConfig):
+    """The mixed-mode step: per-channel (M, differential) read from the
+    carry's mode rows (convert with ``full_from_ff(..., mixed_params=
+    params)``); cfg's constellation_size and differential are ignored."""
+    return functools.partial(demod_block_full, cfg, mixed=True)
+
+
+def make_scanned_full_demod_fn(cfg: DemodConfig, *, in_scale: float = 1.0,
+                               pack_out: bool | None = None,
+                               soft_i8_scale: float | None = None):
+    """Many block steps in one call: ``fn(state, xs_re, xs_im)`` with
+    (K, T, C) plane stacks runs K sequential B1 launches (a loop where JAX
+    scans) and returns (state, FullOutputs stacked on a leading K axis)."""
+    step = make_full_demod_fn(cfg, in_scale=in_scale, pack_out=pack_out,
+                              soft_i8_scale=soft_i8_scale)
+
+    def run(state: FullState, xs_re, xs_im):
+        outs = []
+        for k in range(xs_re.shape[0]):
+            state, out = step(state, xs_re[k], xs_im[k])
+            outs.append(out)
+        return state, FullOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+    return run
 
 
 def _static_taps(cfg: DemodConfig):

@@ -191,23 +191,25 @@ def _block_input(x, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.complex64)).to(device)
 
 
-def _demod_one(cfg: DemodConfig, state: DemodState, x):
-    """One chain: (T,) in, (S,) out, through a C = 1 batch."""
-    one = DemodState(*(t.unsqueeze(0) for t in state))
+def one_chain(step, state, x):
+    """A channel-batched block step ``step(state, x)`` run on one chain:
+    (T,) in, (S,) out, through a C = 1 batch."""
     x = _block_input(x, state.seen.device)
     if x.ndim != 1:
         raise ValueError(f"expected a (T,) block, got {tuple(x.shape)}")
-    new, out = demod_block(cfg, one, x.unsqueeze(0))
-    return (DemodState(*(t.squeeze(0) for t in new)),
-            DemodOutputs(*(t.squeeze(0) for t in out)))
+    new, out = step(type(state)(*(t.unsqueeze(0) for t in state)),
+                    x.unsqueeze(0))
+    return (type(new)(*(t.squeeze(0) for t in new)),
+            type(out)(*(t.squeeze(0) for t in out)))
 
 
-def _demod_bank(cfg: DemodConfig, channels: int, state: DemodState, x):
+def bank(step, channels: int, state, x):
+    """A channel-batched block step on a (channels, T) block."""
     x = _block_input(x, state.seen.device)
     if x.ndim != 2 or x.shape[0] != channels:
         raise ValueError(f"expected a ({channels}, T) block, got "
                          f"{tuple(x.shape)}")
-    return demod_block(cfg, state, x)
+    return step(state, x)
 
 
 def make_demod_fn(cfg: DemodConfig, channels: int | None = None):
@@ -215,9 +217,10 @@ def make_demod_fn(cfg: DemodConfig, channels: int | None = None):
     ((T,) in, (S,) out) or, with ``channels`` set, a bank with a leading
     channel axis.  ``x`` may be numpy (copied to the state's device) or a
     tensor on the state's device."""
+    step = functools.partial(demod_block, cfg)
     if channels is None:
-        return functools.partial(_demod_one, cfg)
-    return functools.partial(_demod_bank, cfg, int(channels))
+        return functools.partial(one_chain, step)
+    return functools.partial(bank, step, int(channels))
 
 
 def demod_init(cfg: DemodConfig, channels: int | None = None,

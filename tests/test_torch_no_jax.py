@@ -9,7 +9,9 @@ with the AGC, equalizer, carrier acquisition and quality tap fed from a
 NativeChannelBank, an EqState checkpoint round trip, a streaming-FEC
 step and flush, and the input side: a wideband capture through
 ChannelizerFrontEnd into FullKernelBatchEngine, ResampledBankEngine, the
-blind probe, and a FeedThread on a NativePacketQueue."""
+blind probe, and a FeedThread on a NativePacketQueue; then the TX and
+evaluation layer: the CLI's selftest and baseline, measure_ber,
+measure_coded_ber, measure_chain_fer and the scanned factories."""
 
 import os
 import subprocess
@@ -187,6 +189,28 @@ feeder.join(timeout=60)
 assert not feeder.is_alive() and q.stats().popped == -(-gx.size // 800)
 assert sum(p.data.size for p in feeder.outputs[
     "softDecision_dataFloat_out"]) == 201
+from psk_soft_tpu_torch import cli
+from psk_soft_tpu_torch.eval.baseline_configs import run_config
+from psk_soft_tpu_torch.eval.ber import measure_ber
+from psk_soft_tpu_torch.eval.coded import measure_chain_fer, measure_coded_ber
+from psk_soft_tpu_torch.models import blockpsk as tblockpsk, full as tfull
+from psk_soft_tpu_torch.utils.transfer import to_device, to_host
+assert cli.main(["selftest", "--device", "cpu"]) == 0
+assert cli.main(["baseline", "--config", "4", "--device", "cpu"]) == 0
+assert measure_ber(gcfg, 12.0, num_symbols=2000, device="cpu").n_symbols > 0
+assert measure_coded_ber(CODE_K7, 4, 3.0, num_bits=2000,
+                         device="cpu").n_frames == 2
+assert measure_chain_fer(cfg, fmt, CODE_K7, CRC16_CCITT, 12.0, channels=128,
+                         blocks=1, rows=(20, 120), device="cpu").frames == 256
+sst, sout = tfull.make_scanned_full_demod_fn(cfg)(
+    tfull.full_from_ff(cfg, tblockpsk.ff_init(cfg, 128, "cpu")),
+    *(torch.from_numpy(rng.standard_normal((2, 64 * 4, 128)).astype(
+        np.float32)) for _ in range(2)))
+assert sout.soft_re.shape == (2, 64, 128)
+fst, fout = tblockpsk.make_scanned_ff_demod_fn(cfg)(
+    tblockpsk.ff_init(cfg, device="cpu"), to_device(gx[:2 * 256], "cpu")
+    .reshape(2, 256))
+assert to_host(fout).soft.shape == (2, 64)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
