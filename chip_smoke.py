@@ -201,7 +201,28 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      them).  Times: seconds and information bits/s per chain-FER point,
      coded bits/s, measure_ber's symbols/s, seconds per config, the
      phase's total.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-25.  Each
+ 26. the port's CLI (ROADMAP A.13) through ``cli.main`` in-process on
+     capture files of 1024 channels x 6 blocks of 512 symbols (phase 7's
+     planted K7 + CRC-16 frames, Gray, 201 MB of cf32 wire), each run's
+     launches counted around it: (a) demod-batch --pipeline full --uw
+     --fec k7 --crc crc16, every planted frame after the warm-up block
+     decoded once with the CRC green and exact info bits, .bits.i16 and
+     .index.i16 byte-equal to NativePlaneBank -> FullKernelBatchEngine
+     in-process on the card, .soft.cf32 and .phase.f32 within B1's bounds
+     of it; (b) --fused-chain, the same frames; (c) --in-format ci16
+     --no-debug-ports --soft-i8 on the capture quantized to int16, equal
+     to the int16-ingest engine in-process, and the same run as ``python
+     -m psk_soft_tpu_torch demod-batch`` in a subprocess, byte-equal; (d)
+     --fec-stream k7, .fecstream.i8 equal to StreamFecDecoder in-process
+     over the run's soft port; (e) --agc --acquire-cfo --quality-report
+     with the frame flags on the capture with carrier offsets 0.018 +
+     0.006*c/C cycles/sample, every planted frame after acquisition
+     decoded, the report parsed; (f) demod ff over one stream of 2^20
+     samples and exact over two blocks, each equal to StreamEngine
+     in-process.  Each run's seconds, wire Msamples/s and information
+     bits/s, beside phases 5, 7 and 22's in-process rates, and one more
+     run of (a) under cProfile: the host functions with the most own time.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-26.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -4900,6 +4921,393 @@ def eval_phase(torch, dev, card) -> dict:
     return res
 
 
+# --- phase 26: the CLI's demod and demod-batch (ROADMAP A.13) ----------------
+
+CLI_BLOCKS = 6                # 26: 1 warm-up + 5 steady blocks of the capture
+CLI_CFO = (0.018, 0.006)      # 26e: offset 0.018 + 0.006*c/C cycles/sample
+DEMOD_SAMPLES = 1 << 20       # 26f: the ff demod's single stream
+DEMOD_EXACT_BLOCKS = 2        # 26f: the exact demod's blocks
+
+
+def run_cli(torch, argv) -> tuple:
+    """``cli.main(argv)`` in-process, every kernel count set to 0 just
+    before it: (the stderr metrics JSON, the launches, seconds)."""
+    import contextlib
+    import io
+
+    from psk_soft_tpu_torch import cli
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+
+    b1 = demod_kernel.demod_full_tm
+    b1.mode_launches = dict.fromkeys(b1.mode_launches, 0)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, launches, dt = counted(torch, lambda: cli.main(argv))
+    lines = err.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"26: {argv[:1]} rc {rc}: {lines[-3:]}")
+    launches.update({f"demod_full_tm[{k}]": v
+                     for k, v in b1.mode_launches.items()})
+    return json.loads(lines[-1]), {k: v for k, v in launches.items() if v}, dt
+
+
+def cli_host_profile(argv, top: int = 12) -> dict:
+    """One more run of the CLI under cProfile (beside the gated one, not
+    counted): its seconds and the host functions with the most own time,
+    [file:line:function, calls, own s, cumulative s]."""
+    import contextlib
+    import cProfile
+    import io
+    import os
+    import pstats
+
+    from psk_soft_tpu_torch import cli
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        prof.runcall(cli.main, argv)
+    dt = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return {"seconds": dt, "top_own_time": [
+        [f"{os.path.basename(f)}:{line}:{fn}", nc, tt, ct]
+        for (f, line, fn), (_, nc, tt, ct, _) in rows]}
+
+
+def read_frames(path) -> dict:
+    """{(channel, start): record} of a .frames.jsonl, no key twice."""
+    rows = [json.loads(r) for r in open(path).read().splitlines()]
+    out = {(r["channel"], r["start"]): r for r in rows}
+    if len(out) != len(rows):
+        raise AssertionError(f"26: a frame of {path} was written twice")
+    return out
+
+
+def gate_planted(label, frames, starts, infos, n_blocks, frame_len) -> int:
+    """Every frame at a planted offset with the CRC green and exact info
+    bits; every planted frame after the first block whose symbols all have
+    demod rows present.  Returns the frames decoded."""
+    planted = {s0: j for j, s0 in enumerate(starts)}
+    for (c, start), f in frames.items():
+        j = planted.get(start % S)
+        if (j is None or f.get("crc_ok") is not True or f.get("suspect")
+                or f["info_bits"] != infos[c, j].tolist()):
+            raise AssertionError(f"{label}: frame {(c, start)} at offset "
+                                 f"{start % S}, CRC {f.get('crc_ok')}")
+    last = n_blocks * S - (NUM_AVG - 1)
+    must = {(c, b * S + s0) for b in range(1, n_blocks) for s0 in starts
+            for c in range(C) if b * S + s0 + frame_len <= last}
+    if not must <= set(frames):
+        raise AssertionError(f"{label}: {len(must - set(frames))} of "
+                             f"{len(must)} planted frames missed")
+    return len(frames)
+
+
+def engine_files(torch, dev, cfg, wire, n_blocks, scale=None,
+                 debug=True, soft_i8=False) -> dict:
+    """NativePlaneBank -> FullKernelBatchEngine in-process on the card over
+    the capture, written in the CLI's file layout: {ext: bytes}."""
+    from psk_soft_tpu_torch.runtime.engine_full import FullKernelBatchEngine
+    from psk_soft_tpu_torch.runtime.native_bank import NativePlaneBank
+    from psk_soft_tpu_torch.runtime.streams import (
+        PORT_BITS, PORT_PHASE, PORT_SAMPLE_INDEX, PORT_SOFT, SRI)
+
+    need = S * SPS
+    eng = FullKernelBatchEngine(cfg, C, block_symbols=S, ingest_scale=scale,
+                                debug_ports=debug, soft_i8=soft_i8,
+                                device=dev)
+    eng.set_input_sri(SRI(stream_id="cli-batch", xdelta=1.0, mode=1))
+    bank = NativePlaneBank(C, capacity_samples=4 * need,
+                           dtype="f32" if scale is None else "i16")
+    pkts = []
+    for b in range(n_blocks):
+        bank.push_interleaved(wire[b * need:(b + 1) * need].reshape(-1))
+        re, im, _ = bank.pop_planes(need, timeout=0)
+        eng.push_planes(re, im)
+        pkts.append(eng.step_packets())
+    pkts.append(eng.flush_packets())
+    bank.close()
+    out = {}
+    for port, ext in ((PORT_SOFT, ".soft.cf32"), (PORT_BITS, ".bits.i16"),
+                      (PORT_PHASE, ".phase.f32"),
+                      (PORT_SAMPLE_INDEX, ".index.i16")):
+        datas = [p[port].data for p in pkts
+                 if p and port in p and p[port].data.size]
+        if not datas:
+            continue
+        d = np.concatenate(datas, axis=1)
+        if port == PORT_BITS:
+            d = d.reshape(C, -1, 2).transpose(1, 0, 2)
+        else:
+            d = d.T
+        out[ext] = np.ascontiguousarray(d).tobytes()
+    return out
+
+
+def files_equal(label, prefix, ref: dict) -> dict:
+    """The CLI's files against the in-process run's: bits and sample index
+    byte-equal, soft within SOFT_TOL, phase within PHASE_TOL."""
+    import os
+
+    errs = {}
+    for ext, want in ref.items():
+        got = open(prefix + ext, "rb").read()
+        if ext in (".bits.i16", ".index.i16"):
+            if got != want:
+                raise AssertionError(f"{label}: {ext} differs from the "
+                                     f"in-process engine's")
+            continue
+        dt = np.complex64 if ext == ".soft.cf32" else np.float32
+        a, b = np.frombuffer(got, dt), np.frombuffer(want, dt)
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: {ext} {a.shape} vs {b.shape}")
+        errs[ext] = float(np.abs(a - b).max()) if a.size else 0.0
+        if errs[ext] > (SOFT_TOL if ext == ".soft.cf32" else PHASE_TOL):
+            raise AssertionError(f"{label}: {ext} off by {errs[ext]}")
+    extra = {e for e in (".phase.f32", ".index.i16")
+             if os.path.exists(prefix + e)} - set(ref)
+    if extra:
+        raise AssertionError(f"{label}: unexpected files {extra}")
+    return errs
+
+
+def cli_demod_phase(torch, dev, card, rates) -> dict:
+    """Phase 26: the port's CLI (``cli.main``) on capture files at full
+    width, each run's launches counted around it.  26a the per-stage
+    stack; 26b --fused-chain; 26c int16 wire (also as a subprocess); 26d
+    --fec-stream; 26e front ends on a carrier offset; 26f ``demod``, ff
+    and exact.  ``rates``: phases 5, 7 and 22's in-process rates, printed
+    beside the CLI's."""
+    import os
+    import tempfile
+
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.crc import CRC16_CCITT
+    from psk_soft_tpu_torch.ops.fec import CODE_K7
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime.engine import StreamEngine
+    from psk_soft_tpu_torch.runtime.fec import StreamFecDecoder
+    from psk_soft_tpu_torch.runtime.streams import (
+        SRI, Packet, PORT_BITS, PORT_PHASE, PORT_SAMPLE_INDEX, PORT_SOFT)
+
+    t_phase = time.perf_counter()
+    cfg = DemodConfig(sps=SPS, num_avg=NUM_AVG, constellation_size=4,
+                      phase_avg=PHASE_AVG)
+    rng = np.random.default_rng(26)
+    fmt = FrameFormat(uw=tuple(rng.integers(0, 4, 32)), payload=64, m=4,
+                      threshold=0.7)
+    starts, infos, x, n_info = plant_chain_stream(fmt, CODE_K7, CRC16_CCITT,
+                                                  rng)
+    n_msg = n_info - CRC16_CCITT.degree
+    block = np.ascontiguousarray(x.T)             # (S*SPS, C), S-periodic
+    del x
+    n = CLI_BLOCKS
+    need = S * SPS
+    wire_samples = n * need * C
+    uw = ",".join(str(v) for v in fmt.uw)
+    common = ["--channels", str(C), "--sps", str(SPS), "-M", "4",
+              "--num-avg", str(NUM_AVG), "--phase-avg", str(PHASE_AVG),
+              "--block-symbols", str(S), "--device", str(dev)]
+    frame_flags = ["--uw", uw, "--frame-payload", str(fmt.payload),
+                   "--fec", "k7", "--fec-labeling", "gray", "--crc", "crc16"]
+    res, runs = {}, {}
+
+    def note(name, dt, launches, frames=None, samples=wire_samples, **kw):
+        runs[name] = dict(seconds=dt, launches=launches,
+                          wire_msamples_per_s=samples / dt / 1e6, **kw)
+        if frames is not None:
+            runs[name]["frames"] = frames
+            runs[name]["infobits_per_s"] = frames * n_msg / dt
+        log(json.dumps({"phase": "cli_demod", "run": name, **runs[name],
+                        "card": card}))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "bank.cf32")
+        with open(cap, "wb") as f:
+            for _ in range(n):
+                f.write(block.tobytes())
+        wire = np.tile(block, (n, 1))              # (n*S*SPS, C) complex64
+
+        # --- 26a: the per-stage stack, files against the engine in-process
+        pa = os.path.join(tmp, "a")
+        metrics, launches, dt = run_cli(torch, [
+            "demod-batch", "--in", cap, "--out-prefix", pa, *common,
+            "--pipeline", "full", *frame_flags])
+        frames_a = read_frames(pa + ".frames.jsonl")
+        got = gate_planted("26a", frames_a, starts, infos, n, fmt.frame_len)
+        if (metrics["samples_in"], metrics["frames_synced"],
+                metrics["crc_failures"]) != (wire_samples, got, 0):
+            raise AssertionError(f"26a: metrics {metrics}")
+        if launches.get("demod_full_tm", 0) < n - 1 or launches.get(
+                "viterbi_fused", 0) < n - 1:
+            raise AssertionError(f"26a: launches {launches}")
+        note("26a per-stage", dt, launches, got)
+        res["26a"] = files_equal("26a", pa, engine_files(
+            torch, dev, cfg, wire.view(np.float32), n))
+        log(json.dumps({"phase": "cli_demod_profile", "run": "26a",
+                        **cli_host_profile([
+                            "demod-batch", "--in", cap, "--out-prefix",
+                            os.path.join(tmp, "prof"), *common,
+                            "--pipeline", "full", *frame_flags]),
+                        "card": card}))
+
+        # --- 26b: --fused-chain, the same frames
+        pb = os.path.join(tmp, "b")
+        metrics, launches, dt = run_cli(torch, [
+            "demod-batch", "--in", cap, "--out-prefix", pb, *common,
+            "--fused-chain", *frame_flags])
+        frames_b = read_frames(pb + ".frames.jsonl")
+        got = gate_planted("26b", frames_b, starts, infos, n, fmt.frame_len)
+
+        def rows(fr):
+            return {(k, tuple(f["info_bits"]), f["crc_ok"])
+                    for k, f in fr.items()}
+
+        # The chain loses the frames wholly inside its warm-up block (the
+        # reference's behaviour), the per-stage stack decodes them: equal
+        # from the first steady block on, a subset before it.
+        late = {k: f for k, f in frames_a.items() if k[1] >= S}
+        if not rows(late) <= rows(frames_b) <= rows(frames_a):
+            raise AssertionError(
+                f"26b: the fused chain's frames differ from the per-stage "
+                f"stack's: {len(set(late) - set(frames_b))} steady frames "
+                f"missing, {len(set(frames_b) - set(frames_a))} extra")
+        if metrics["crc_failures"] or metrics["overflow_peaks"] or min(
+                launches.get("demod_full_tm", 0),
+                launches.get("viterbi_fused", 0)) < n - 1:
+            raise AssertionError(f"26b: {metrics} launches {launches}")
+        note("26b fused chain", dt, launches, got)
+
+        # --- 26c: int16 wire, no debug ports, int8 soft (and a subprocess)
+        scale = float(np.abs(block.view(np.float32)).max()) / 32000.0
+        w16 = np.round(block.view(np.float32) / scale).astype(np.int16)
+        cap16 = os.path.join(tmp, "bank.ci16")
+        with open(cap16, "wb") as f:
+            for _ in range(n):
+                f.write(w16.tobytes())
+        argv_c = ["demod-batch", "--in", cap16, *common, "--pipeline",
+                  "full", "--in-format", "ci16", "--in-scale", repr(scale),
+                  "--no-debug-ports", "--soft-i8"]
+        pc = os.path.join(tmp, "c")
+        metrics, launches, dt = run_cli(torch, argv_c + ["--out-prefix", pc])
+        if min(launches.get("demod_full_tm", 0),
+               launches.get("demod_full_tm[int16]", 0)) < n - 1:
+            raise AssertionError(f"26c: launches {launches}")
+        note("26c int16 wire", dt, launches)
+        res["26c"] = files_equal("26c", pc, engine_files(
+            torch, dev, cfg, np.tile(w16, (n, 1)), n, scale=scale,
+            debug=False, soft_i8=True))
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        ps = os.path.join(tmp, "s")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "psk_soft_tpu_torch",
+                               *argv_c, "--out-prefix", ps], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"26c subprocess: {proc.stderr[-2000:]}")
+        for ext in (".soft.cf32", ".bits.i16"):
+            if open(ps + ext, "rb").read() != open(pc + ext, "rb").read():
+                raise AssertionError(f"26c: the subprocess's {ext} differs")
+        note("26c as python -m psk_soft_tpu_torch", sub_s, {})
+
+        # --- 26d: --fec-stream k7 against StreamFecDecoder in-process
+        pd = os.path.join(tmp, "d")
+        metrics, launches, dt = run_cli(torch, [
+            "demod-batch", "--in", cap, "--out-prefix", pd, *common,
+            "--pipeline", "full", "--fec-stream", "k7"])
+        if min(launches.get("viterbi_acs", 0),
+               launches.get("viterbi_traceback", 0)) < 1:
+            raise AssertionError(f"26d: launches {launches}")
+        soft = np.fromfile(pd + ".soft.cf32", np.complex64).reshape(-1, C).T
+        dec = StreamFecDecoder(C, code=CODE_K7, m=4, device=dev)
+        dec.observe(np.ascontiguousarray(soft))
+        dec.finalize()
+        want = dec.pop_bits()
+        got_bits = np.fromfile(pd + ".fecstream.i8", np.int8).reshape(-1, C)
+        if metrics["fec_stream_bits"] != want.shape[1] or not np.array_equal(
+                got_bits.T, want):
+            raise AssertionError("26d: .fecstream.i8 differs from "
+                                 "StreamFecDecoder over the soft port")
+        note("26d fec stream", dt, launches, fec_stream_bits=want.shape[1])
+
+        # --- 26e: AGC + carrier acquisition + quality report on an offset
+        freq = CLI_CFO[0] + CLI_CFO[1] * np.arange(C) / C
+        t = np.arange(n * need, dtype=np.float64)[:, None]
+        rot = np.exp(2j * np.pi * ((t * freq[None, :]) % 1.0))
+        cfo_cap = os.path.join(tmp, "cfo.cf32")
+        (wire * rot.astype(np.complex64)).tofile(cfo_cap)
+        del rot, t
+        pe, qpath = os.path.join(tmp, "e"), os.path.join(tmp, "q.json")
+        metrics, launches, dt = run_cli(torch, [
+            "demod-batch", "--in", cfo_cap, "--out-prefix", pe, *common,
+            "--pipeline", "full", "--agc", "--acquire-cfo",
+            "--quality-report", qpath, *frame_flags])
+        frames_e = read_frames(pe + ".frames.jsonl")
+        got = gate_planted("26e", frames_e, starts, infos, n, fmt.frame_len)
+        q = json.loads(open(qpath).read())
+        if sorted(q) != ["amp", "evm_pct", "lock", "power", "snr_db",
+                         "symbols"] or any(len(v) != C for v in q.values()) \
+                or min(q["symbols"]) <= 0 or min(q["lock"]) < 0.8:
+            raise AssertionError(f"26e: quality report {str(q)[:300]}")
+        note("26e front ends", dt, launches, got,
+             min_lock=min(q["lock"]), min_snr_db=min(q["snr_db"]))
+        del wire
+
+        # --- 26f: demod, one long stream ff and two blocks exact
+        from psk_soft_tpu_torch.testing.signals import gen_psk_channel
+        xs, _ = gen_psk_channel(DEMOD_SAMPLES // SPS, sps=SPS, m=4,
+                                snr_db=20.0, freq_offset=1e-4, seed=26)
+        xs = xs.astype(np.complex64)
+        for pipe, nsamp in (("ff", DEMOD_SAMPLES),
+                            ("exact", DEMOD_EXACT_BLOCKS * need)):
+            one = os.path.join(tmp, f"one_{pipe}.cf32")
+            xs[:nsamp].tofile(one)
+            pf = os.path.join(tmp, f"f_{pipe}")
+            metrics, launches, dt = run_cli(torch, [
+                "demod", "--in", one, "--out-prefix", pf, "--sps", str(SPS),
+                "-M", "4", "--num-avg", str(NUM_AVG), "--phase-avg",
+                str(PHASE_AVG), "--block-symbols", str(S), "--pipeline",
+                pipe, "--device", str(dev)])
+            eng = StreamEngine(cfg, block_symbols=S, pipeline=pipe,
+                               device=dev)
+            ref = eng.process(Packet(data=xs[:nsamp], sri=SRI(
+                stream_id="cli", xdelta=1.0, mode=1), t=0.0, eos=True))
+            errs = {}
+            for port, ext, dt_ in ((PORT_SOFT, ".soft.cf32", np.complex64),
+                                   (PORT_BITS, ".bits.i16", np.int16),
+                                   (PORT_PHASE, ".phase.f32", np.float32),
+                                   (PORT_SAMPLE_INDEX, ".index.i16",
+                                    np.int16)):
+                a = np.fromfile(pf + ext, dt_)
+                b = np.asarray(ref[port].data, dt_).reshape(-1)
+                if a.shape != b.shape:
+                    raise AssertionError(f"26f {pipe}: {ext} {a.shape} vs "
+                                         f"{b.shape}")
+                if dt_ is np.int16:
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"26f {pipe}: {ext} differs")
+                else:
+                    errs[ext] = float(np.abs(a - b).max())
+            if errs[".soft.cf32"] > 1e-5 or errs[".phase.f32"] > 1e-4 or \
+                    metrics["samples_in"] != nsamp:
+                raise AssertionError(f"26f {pipe}: {errs} {metrics}")
+            note(f"26f demod {pipe}", dt, launches, samples=nsamp,
+                 max_err=errs)
+            res[f"26f_{pipe}"] = errs
+    res["runs"] = runs
+    res["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "cli_demod", "seconds": res["seconds"],
+                    "file_errors": {k: v for k, v in res.items()
+                                    if k not in ("runs", "seconds")},
+                    "in_process_rates": rates, "card": card}))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5104,6 +5512,7 @@ def main() -> int:
     mode_times = b1_mode_times(torch, dev, card, event_ms)
     stage0_times = fir_times(torch, dev, card, event_ms)
 
+    engine_rates = {}
     for depth in (0, 1):
         eng = FullKernelBatchEngine(cfg, C, block_symbols=S,
                                     pipeline_depth=depth,
@@ -5146,6 +5555,7 @@ def main() -> int:
                 emitted += 1
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        engine_rates[depth] = n_timed * need * C / dt
         log(json.dumps({"phase": "timing", "what": "engine end to end",
                         "pipeline_depth": depth, "debug_ports": False,
                         "blocks": n_timed, "emitted": emitted,
@@ -5194,6 +5604,11 @@ def main() -> int:
                     "queue_samples_per_s": queue24["samples_per_s"],
                     "card": card}))
     eval25 = eval_phase(torch, dev, card)
+    cli26 = cli_demod_phase(torch, dev, card, {
+        "phase5_engine_samples_per_s": engine_rates[0],
+        "phase7_chain_infobits_per_s": chain["infobits_per_s"][0],
+        "phase22_receiver_infobits_per_s":
+            receiver22["rates"]["infobits_per_s"]})
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
                     "front_receiver": front23["b1_gate"],
@@ -5229,7 +5644,9 @@ def main() -> int:
                     **{f"chain_fer_{k}": eval25["chain_fer"][k]["launches"]
                        for k, _, _ in FER_POINTS},
                     "coded_ber": {k: v["launches"] for k, v in
-                                  eval25["coded_ber"].items()}}))
+                                  eval25["coded_ber"].items()},
+                    **{f"cli {k}": v["launches"]
+                       for k, v in cli26["runs"].items()}}))
 
     # --- the kernels line ---
     t = timings[False]

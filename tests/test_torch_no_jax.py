@@ -11,7 +11,9 @@ step and flush, and the input side: a wideband capture through
 ChannelizerFrontEnd into FullKernelBatchEngine, ResampledBankEngine, the
 blind probe, and a FeedThread on a NativePacketQueue; then the TX and
 evaluation layer: the CLI's selftest and baseline, measure_ber,
-measure_coded_ber, measure_chain_fer and the scanned factories."""
+measure_coded_ber, measure_chain_fer and the scanned factories; then the
+CLI's gen-frames into demod-batch with frame sync and FEC, and every
+example module imported."""
 
 import os
 import subprocess
@@ -211,6 +213,23 @@ fst, fout = tblockpsk.make_scanned_ff_demod_fn(cfg)(
     tblockpsk.ff_init(cfg, device="cpu"), to_device(gx[:2 * 256], "cpu")
     .reshape(2, 256))
 assert to_host(fout).soft.shape == (2, 64)
+assert {f"psk_soft_tpu_torch.examples.{n}" for n in (
+    "bank_demod", "coded_link", "frame_sync", "hetero_rate_bank",
+    "one_launch_chain", "stream_demod", "wideband_bank")} <= set(names)
+with tempfile.TemporaryDirectory() as tmp:
+    cap, rx = os.path.join(tmp, "cap.cf32"), os.path.join(tmp, "rx")
+    uw = "0,1,2,3,3,2,1,0,0,2,1,3,1,1,2,2,3,0,2,1,1,3,0,2,2,0,3,1,0,3,1,2"
+    assert cli.main(["gen-frames", "--out", cap, "--channels", "2",
+                     "--symbols", "1200", "--uw", uw, "--frame-payload",
+                     "64", "--fec", "k7", "--frame-interval", "300",
+                     "--seed", "2"]) == 0
+    assert cli.main(["demod-batch", "--in", cap, "--channels", "2",
+                     "--out-prefix", rx, "--sps", "8", "-M", "4",
+                     "--num-avg", "20", "--phase-avg", "20",
+                     "--block-symbols", "256", "--uw", uw,
+                     "--frame-payload", "64", "--fec", "k7",
+                     "--device", "cpu"]) == 0
+    assert len(open(rx + ".frames.jsonl").read().splitlines()) >= 4
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
