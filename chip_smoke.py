@@ -222,7 +222,33 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      in-process.  Each run's seconds, wire Msamples/s and information
      bits/s, beside phases 5, 7 and 22's in-process rates, and one more
      run of (a) under cProfile: the host functions with the most own time.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-26.  Each
+ 27. the sharding layer (ROADMAP A.11) on meshes whose shards are the one
+     card (its "cuda:0" repeated), at BASELINE config 5's widths (4096
+     QPSK channels, sps 8, num_avg 100, phase_avg 50; signals made on the
+     card from a seed): (a) make_sharded_demod at 4096 x 1024 on meshes
+     1x1, 2x4, 4x2, 1x8, each equal to the single-device ff under config
+     5's gate (bits equal on valid, soft within 1e-3), the first 128
+     channels equal to a CPU mesh's run; (b) make_sharded_full_demod on 1,
+     2 and 4 chan shards over 10 steady blocks after the ff warm-up and
+     full_from_ff, every output and the carry torch.equal to
+     demod_block_full on one device, B1 launched shards x blocks times;
+     (c) make_time_sharded_full_demod at 4096 x 2048 on meshes 1x4, 2x2,
+     2x4 in six profiles (QPSK, 8-PSK, differential; config 3's RRC +
+     timing_interp; mixed at config 4's widths; int16 in with int8 soft
+     out) against the ff (the mixed pipeline; the float32 run) as
+     tests/test_time_sharded_full.py holds them, B1 once a shard a call;
+     every B1 launch of (b) and (c) held by B1Gate; (d)
+     make_sharded_channelize on phase 24a's capture over 4 time shards
+     within 2e-5 of channelize_block; (e) DistributedBatchEngine at 4096
+     channels, 1 + 10 blocks and a flush, in a world-size-1 NCCL group in
+     this process and as two processes over gloo on the card (2048
+     channels each), packets equal to BatchEngine's; (f) run_config(5,
+     quick=False) and ``baseline --config 5 --full`` as a subprocess; (g)
+     eval/scaling's three reports on 1, 2 and 4 shards of the card
+     (labelled: sharding's cost, not scaling), B1 and B2 counted; (h)
+     graft_entry.dryrun_multichip(8) on the card (B1, B2, B3, B4).  Each
+     path's ms a call beside its single-device path's.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-27.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -254,6 +280,7 @@ PHASE_TOL, SOFT_TOL = 2e-3, 3e-3
 QPSK_TOL = 0.05               # engine soft decisions vs the QPSK points
 PM_TOL = 1e-5                 # B3 final path metrics vs the plain version
 NEAR_TIE_REL = 1e-5           # B5 on noise: an index may differ only here
+INTERP_TIE = 1e-4             # timing_interp: window-sum change to a tie
 FUSED_SOFT_TOL, FUSED_PHASE_TOL = 2e-4, 1e-3   # tests/test_fused.py:67-75
 CFO_TOL = 1e-4                # acquire_cfo estimates vs the planted offsets
 CPU_C = 128                   # channels of the CPU comparison runs
@@ -3488,7 +3515,15 @@ class B1Gate:
     path that runs without debug ports gets one more launch with them on
     (a checking launch: the counts are put back), held bit-equal to the
     path's own.  Launch counts stay the kernel's (the plain version does
-    not count)."""
+    not count).  Under a matched filter the near-tie sums are of the
+    filtered samples; under timing_interp (the index rounds a centroid) a
+    differing index is a near tie where a change of INTERP_TIE of the
+    window sums' total moves the centroid across a rounding edge (the
+    centroid of a flat window is ill-conditioned).  The gate also covers the
+    time-sharded factory (parallel/sharded_full calls B1 itself), whose
+    edge shards' halos are zero padding (outputs whose windows touch it are
+    counted, not held: ``_unpadded``), and holds concurrent shards'
+    launches one at a time."""
 
     def __init__(self, torch, label: str, noise_channels=(),
                  tied_bits: bool = False):
@@ -3498,6 +3533,7 @@ class B1Gate:
         self.kernel = demod_kernel.demod_full_tm
         self.noise = sorted(noise_channels)
         self.tied_bits = tied_bits
+        self.lock = threading.Lock()
         from psk_soft_tpu_torch.ops.phase import UNWRAP_TREND_LEN
         self.trend = UNWRAP_TREND_LEN
         self.stats = dict(launches_checked=0, outputs=0, index_differ=0,
@@ -3507,19 +3543,45 @@ class B1Gate:
 
     def __enter__(self):
         from psk_soft_tpu_torch.models import full
+        from psk_soft_tpu_torch.parallel import sharded_full
 
         class Checked:              # the kernel module, B1 checked
-            demod_full_tm = self._check
+            demod_full_tm = self._locked_check
 
             def __getattr__(_, name):
                 return getattr(self.dk, name)
 
-        self._full = full
-        full.demod_kernel = Checked()
+        self._callers = (full, sharded_full)
+        for mod in self._callers:
+            mod.demod_kernel = Checked()
         return self
 
     def __exit__(self, *exc):
-        self._full.demod_kernel = self.dk
+        for mod in self._callers:
+            mod.demod_kernel = self.dk
+
+    def _locked_check(self, *planes, **kw):
+        with self.lock:
+            return self._check(*planes, **kw)
+
+    @staticmethod
+    def _unpadded(torch, re, im, kw, s_n: int, span: int):
+        """(S,) bool: the outputs whose timing window and tracker reach
+        (``span`` outputs back) touch no padding, a symbol with a raw row
+        that is exactly zero on every channel (a time shard's edge halo;
+        no stream has such rows).  Padded outputs are counted, not held:
+        their windows hold no signal (the ROADMAP's zero-window ties)."""
+        sps, na = kw["sps"], kw["num_avg"]
+        rows = [torch.cat(pair) for pair in (re, im)]
+        zero = ((rows[0] == 0).all(1) & (rows[1] == 0).all(1)).int()
+        zc = torch.cat([zero.new_zeros(1), zero.cumsum(0)])
+        extra = len(kw["mf_taps"]) - 1 if kw.get("mf_taps") else 0
+        t = torch.arange(s_n + na - 1, device=zero.device)
+        hi = torch.clamp((t + 1) * sps + extra, max=zero.numel())
+        pad = ((zc[hi] - zc[t * sps]) > 0).int()
+        pc = torch.cat([pad.new_zeros(1), pad.cumsum(0)])
+        o = torch.arange(s_n, device=zero.device)
+        return (pc[o + na] - pc[torch.clamp(o - span, min=0)]) == 0
 
     def _check(self, win_re, win_im, x_re, x_im, planes, **kw):
         torch = self.torch
@@ -3539,32 +3601,32 @@ class B1Gate:
                                          f"launch (output {i})")
         ref = self.dk.demod_full_tm_ref(win_re, win_im, x_re, x_im, planes,
                                         **kw)
-        if not kw.get("debug_ports", True) or kw.get("mf_taps"):
-            raise AssertionError(f"{self.label}: the B1 gate needs the "
-                                 f"sample index and no matched filter")
         sps, na = kw["sps"], kw["num_avg"]
         s_n, n_ch = got[0].shape
         sig = torch.ones(n_ch, dtype=torch.bool, device=x_re.device)
         sig[self.noise] = False
+        span = kw["phase_avg"] + self.trend
+        held = self._unpadded(torch, (win_re, x_re), (win_im, x_im), kw,
+                              s_n, span)
+        hold = sig[None, :] & held[:, None]
         g_idx, r_idx = got[4].long(), ref[4].long()
         same = g_idx == r_idx
-        if not self.tied_bits and not torch.equal(got[3][:, sig],
-                                                  ref[3][:, sig]):
+        if not self.tied_bits and not torch.equal(got[3][hold],
+                                                  ref[3][hold]):
             raise AssertionError(f"{self.label}: B1 bits differ from the "
                                  f"plain version at "
-                                 f"{int((got[3] != ref[3])[:, sig].sum())} "
+                                 f"{int((got[3] != ref[3])[hold].sum())} "
                                  f"symbols of signal channels")
         # A differing pick moves the tracker's phase for the outputs whose
         # window (phase_avg + the trend) holds it: those are counted, and
         # soft and phase held on the rest.
-        differ = ~same
-        span = kw["phase_avg"] + self.trend
+        differ = ~same & held[:, None]
         cs = torch.cat([torch.zeros_like(differ[:1], dtype=torch.int32),
                         differ.int().cumsum(0)])
         low = torch.clamp(torch.arange(1, s_n + 1, device=cs.device) - span
                           - 1, min=0)
         tainted = (cs[1:] - (0 if self.tied_bits else cs[low])) > 0
-        keep = ~tainted & sig[None, :]
+        keep = ~tainted & hold
         st = self.stats
         for k, (a, b) in (("soft_max_err", (got[0], ref[0])),
                           ("soft_max_err", (got[1], ref[1])),
@@ -3572,12 +3634,12 @@ class B1Gate:
             d = (a - b).abs()
             if bool(keep.any()):
                 st[k] = max(st[k], float(d[keep].max()))
-            moved = tainted & sig[None, :]
+            moved = tainted & hold
             if bool(moved.any()):
                 st[f"near_tie_{k}"] = max(st.get(f"near_tie_{k}", 0.0),
                                           float(d[moved].max()))
         st["near_tie_outputs"] = st.get("near_tie_outputs", 0) + int(
-            (tainted & sig[None, :]).sum())
+            (tainted & hold).sum())
         if self.tied_bits:
             bits_differ = got[3] != ref[3]
             if bool((bits_differ & keep).any()):
@@ -3586,28 +3648,60 @@ class B1Gate:
                     f"at {int((bits_differ & keep).sum())} outputs no "
                     f"differing pick moved")
             st["near_tie_bits_differ"] = st.get("near_tie_bits_differ", 0) \
-                + int((bits_differ & tainted & sig[None, :]).sum())
+                + int((bits_differ & tainted & hold).sum())
+        if not bool(held.all()):
+            st["padding_outputs"] = st.get("padding_outputs", 0) + int(
+                (~held).sum()) * n_ch
+            st["padding_index_differ"] = st.get("padding_index_differ", 0) \
+                + int((~same & ~held[:, None]).sum())
         n_differ = int(differ.sum())
         if n_differ:
-            # Exact window sums of the [window | block] energies.
-            e = (torch.cat([win_re, x_re]).double() ** 2
-                 + torch.cat([win_im, x_im]).double() ** 2)
+            # Exact window sums of the [window | block] energies (of the
+            # filtered samples under a matched filter).
+            raw = [torch.cat([w, x]) for w, x in ((win_re, x_re),
+                                                   (win_im, x_im))]
+            if kw.get("mf_taps"):
+                raw = self.dk.matched_filter_tm_ref(
+                    *raw, kw["mf_taps"], in_scale=kw.get("in_scale", 1.0))
+            e = raw[0].double() ** 2 + raw[1].double() ** 2
             e = e[:(s_n + na - 1) * sps].reshape(s_n + na - 1, sps, n_ch)
             cs = torch.cat([torch.zeros_like(e[:1]), e.cumsum(0)])
             wsum = cs[na:] - cs[:-na]                       # (S, sps, C)
-            top = wsum.max(dim=1).values
-            gap_g = (top - wsum.gather(1, g_idx[:, None]).squeeze(1)) / top
-            gap_r = (top - wsum.gather(1, r_idx[:, None]).squeeze(1)) / top
-            widest = float(torch.maximum(gap_g, gap_r)[differ].max())
+            if kw.get("timing_interp"):
+                # The index is round(p) of the circular centroid p of the
+                # window sums W; a tie is where moving W by a fraction
+                # INTERP_TIE of its total moves p across a rounding edge:
+                # (distance to the edge) * (2pi/sps) * |z| / sum(W) below
+                # it (|z| the centroid's resultant, small where W is flat).
+                ang = torch.arange(sps, dtype=torch.float64,
+                                   device=e.device) * (2 * np.pi / sps)
+                zr = (wsum * torch.cos(ang)[:, None]).sum(1)
+                zi = (wsum * torch.sin(ang)[:, None]).sum(1)
+                pos = torch.atan2(zi, zr) * (sps / (2 * np.pi))
+                pos = torch.where(pos < -0.5, pos + sps, pos)
+                total = wsum.sum(1)
+                gap = ((pos - torch.floor(pos) - 0.5).abs() * (2 * np.pi / sps)
+                       * torch.hypot(zr, zi)
+                       / torch.where(total > 0, total, torch.ones_like(total)))
+                widest = float(gap[differ].max())
+                bound = INTERP_TIE
+            else:
+                top = wsum.max(dim=1).values
+                gap_g = (top - wsum.gather(1, g_idx[:, None]).squeeze(1)
+                         ) / top
+                gap_r = (top - wsum.gather(1, r_idx[:, None]).squeeze(1)
+                         ) / top
+                widest = float(torch.maximum(gap_g, gap_r)[differ].max())
+                bound = NEAR_TIE_REL
             st["near_tie_widest"] = max(st["near_tie_widest"], widest)
-            if widest >= NEAR_TIE_REL:
+            if widest >= bound:
                 raise AssertionError(
                     f"{self.label}: B1 picks another sample than its plain "
                     f"version at {n_differ} outputs, widest gap {widest} "
-                    f"(near-tie bound {NEAR_TIE_REL}): a B1 fault")
+                    f"(near-tie bound {bound}): a B1 fault")
         st["launches_checked"] += 1
         st["outputs"] += s_n * n_ch
-        st["index_differ"] += int((differ & sig[None, :]).sum())
+        st["index_differ"] += int((differ & hold).sum())
         st["noise_index_differ"] += int((differ & ~sig[None, :]).sum())
         st["noise_bits_differ"] += int((got[3] != ref[3])[:, ~sig].sum())
         if st["soft_max_err"] > SOFT_TOL or st["phase_max_err"] > PHASE_TOL:
@@ -5308,6 +5402,703 @@ def cli_demod_phase(torch, dev, card, rates) -> dict:
     return res
 
 
+# --- phase 27: the sharding layer (ROADMAP A.11) ----------------------------
+
+C5 = 4096                     # BASELINE config 5's channels (full size)
+C5_SYMBOLS = 1024             # 27a: its symbols a channel
+C5_SOFT_TOL = 1e-3            # its gate (eval/baseline_configs.py)
+SHARD_MESHES = ((1, 1), (2, 4), (4, 2), (1, 8))      # 27a: (chan, time)
+CHAN_SHARDS = (1, 2, 4)       # 27b: chan shards of the one card
+TIME_MESHES = ((1, 4), (2, 2), (2, 4))               # 27c
+TIME_SYMBOLS = 2048           # 27c: symbols a channel
+ROT_TOL = 5e-3                # 27c: tests/test_time_sharded_full.py
+I8_SCALE = 100.0              # 27c: int8 soft scale
+WB_TIME = 4                   # 27d: time shards of the channelizer
+SCALING_COUNTS = (1, 2, 4)    # 27g: shards of the one card
+DRYRUN_SHARDS = 8             # 27h
+
+DIST_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+import chip_smoke
+from psk_soft_tpu_torch.config import DemodConfig
+from psk_soft_tpu_torch.parallel import launch
+from psk_soft_tpu_torch.runtime.distributed import DistributedBatchEngine
+from psk_soft_tpu_torch.runtime.streams import SRI
+
+launch.initialize(backend="gloo")    # PSK_COORDINATOR etc.; one card
+rank = torch.distributed.get_rank()
+mesh = launch.global_mesh(devices=[sys.argv[3]])
+cfg = DemodConfig(sps=8, num_avg=100, constellation_size=4, phase_avg=50)
+n_sym, seed, device, n_ch = sys.argv[1:5]
+x = chip_smoke.c5_signal(torch, device, int(n_ch), int(n_sym), int(seed))
+eng = DistributedBatchEngine(cfg, int(n_ch), mesh=mesh,
+                             block_symbols=chip_smoke.S)
+eng.set_input_sri(SRI(stream_id="dist", xdelta=1e-6))
+lo, n = eng.local_offset, eng.channels
+pkts = chip_smoke.drive_bank(eng, x[lo:lo + n].cpu().numpy())
+out = {"lo": lo, "n": n}
+for i, d in enumerate(pkts):
+    for port, p in (d or {}).items():
+        out[f"{i}:{port}"] = p.data
+        out[f"{i}:{port}:t"] = np.float64(p.t)
+        out[f"{i}:{port}:eos"] = np.bool_(p.eos)
+np.savez(os.path.join(os.environ["PSK_OUT"], f"dist_{rank}.npz"), **out)
+torch.distributed.destroy_process_group()
+print("DONE", flush=True)
+"""
+
+
+def c5_signal(torch, dev, n_ch: int, n_sym: int, seed: int, m=4,
+              diff=False, pulse=None):
+    """(n_ch, n_sym*SPS) complex64 made on ``dev`` from ``seed`` (the same
+    values in every process): M-PSK impulses on intra-symbol sample 3
+    (timing-decisive), a 1e-4 cycles/sample offset, noise of std 0.01 on
+    each part (config 5's and tests/test_time_sharded_full.py's signal).
+    ``m`` and ``diff`` may be (n_ch,) tensors (a mixed bank); ``pulse``
+    (odd-length taps) shapes the impulses, centred as gen_psk_channel's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m_t = torch.as_tensor(m, device=dev).reshape(-1, 1).double()
+    k = torch.floor(torch.rand((n_ch, n_sym), generator=g, device=dev,
+                               dtype=torch.float64) * m_t)
+    ang = 2 * np.pi * k / m_t
+    d = torch.as_tensor(diff, device=dev).reshape(-1, 1)
+    ang = torch.where(d, torch.cumsum(ang, dim=1), ang)
+    ang = ang + 2 * np.pi * 1e-4 * SPS * torch.arange(n_sym, device=dev)
+    x = torch.zeros((n_ch, n_sym, SPS), dtype=torch.complex64, device=dev)
+    x[:, :, 3] = torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+    x = x.reshape(n_ch, -1)
+    if pulse is not None:
+        taps = torch.as_tensor(np.asarray(pulse, np.float32), device=dev)
+        conv = lambda v: torch.nn.functional.conv1d(      # noqa: E731
+            v[:, None], taps.flip(0)[None, None],
+            padding=taps.numel() // 2)[:, 0]           # np.convolve "same"
+        x = torch.complex(conv(x.real.contiguous()),
+                          conv(x.imag.contiguous()))
+    noise = torch.randn((2, n_ch, n_sym * SPS), generator=g, device=dev)
+    return x + 0.01 * torch.complex(noise[0], noise[1])
+
+
+def drive_bank(eng, x: np.ndarray) -> list:
+    """Push (C, T) samples into a bank engine a block at a time with
+    step_packets, then flush_packets: the packet dicts in order."""
+    need = S * SPS
+    pkts = []
+    for pos in range(0, x.shape[1] - need + 1, need):
+        eng.push_block(x[:, pos:pos + need])
+        pkts.append(eng.step_packets())
+    eng.push_block(x[:, x.shape[1] - x.shape[1] % need:])
+    pkts.append(eng.flush_packets())
+    return pkts
+
+
+def mesh_of(dev, chan: int, time_: int):
+    """A chan x time mesh of shards of the one card."""
+    from psk_soft_tpu_torch.parallel.mesh import make_mesh, shard_devices
+
+    return make_mesh(chan, time_, shard_devices(dev, chan * time_))
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Best host-clock ms of ``fn()`` over ``reps`` runs, the card synced
+    before and after each."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def c5_cfg(**kw):
+    from psk_soft_tpu_torch.config import DemodConfig
+
+    return DemodConfig(**dict(dict(sps=SPS, num_avg=NUM_AVG,
+                                   constellation_size=4,
+                                   phase_avg=PHASE_AVG), **kw))
+
+
+def sharded_demod_phase(torch, dev, card) -> dict:
+    """27a: make_sharded_demod (plain torch, seams by collectives between
+    shard threads) at 4096 x 1024 symbols on SHARD_MESHES of the card:
+    each equal to the single-device ff on the card under config 5's gate
+    (valid counts equal, bits equal on valid, soft within 1e-3); the (2, 4)
+    run's first CPU_C channels equal a CPU run on a CPU mesh (bits and
+    sample index equal, soft within 1e-3); ms a call beside the ff's."""
+    from psk_soft_tpu_torch.models.blockpsk import ff_init, make_ff_demod_fn
+    from psk_soft_tpu_torch.parallel.sharded import make_sharded_demod
+
+    cfg = c5_cfg()
+    x = c5_signal(torch, dev, C5, C5_SYMBOLS, 271)
+    ff = make_ff_demod_fn(cfg, channels=C5)
+    _, ref = ff(ff_init(cfg, C5, dev), x)
+    ff_ms = host_ms(torch, lambda: ff(ff_init(cfg, C5, dev), x))
+    v1 = ref.valid
+    n_valid = C5 * (C5_SYMBOLS - NUM_AVG + 1)
+    res, keep = {}, None
+    for chan, time_ in SHARD_MESHES:
+        run = make_sharded_demod(cfg, mesh_of(dev, chan, time_), C5_SYMBOLS)
+        out = run(x)
+        v2 = out.valid
+        if not int(v1.sum()) == int(v2.sum()) == n_valid:
+            raise AssertionError(f"27a {chan}x{time_}: valid counts "
+                                 f"{int(v1.sum())}, {int(v2.sum())}")
+        if not torch.equal(out.bits[v2], ref.bits[v1]):
+            raise AssertionError(f"27a {chan}x{time_}: bits differ")
+        err = float((out.soft[v2] - ref.soft[v1]).abs().max())
+        if not err < C5_SOFT_TOL:
+            raise AssertionError(f"27a {chan}x{time_}: soft {err}")
+        ms = host_ms(torch, lambda: run(x))
+        res[f"{chan}x{time_}"] = dict(ms=ms, soft_max_err=err,
+                                      samples_per_s=C5 * C5_SYMBOLS * SPS
+                                      / (ms * 1e-3))
+        if (chan, time_) == (2, 4):
+            keep = out
+    from psk_soft_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = make_sharded_demod(cfg, make_mesh(2, 4, ["cpu"] * 8), C5_SYMBOLS)(
+        x[:CPU_C].cpu())
+    v = cpu.valid
+    if not (torch.equal(keep.valid[:CPU_C].cpu(), v)
+            and torch.equal(keep.bits[:CPU_C].cpu()[v], cpu.bits[v])
+            and torch.equal(keep.sample_index[:CPU_C].cpu()[v],
+                            cpu.sample_index[v])):
+        raise AssertionError("27a: card and CPU differ")
+    cpu_err = float((keep.soft[:CPU_C].cpu()[v] - cpu.soft[v]).abs().max())
+    if not cpu_err < C5_SOFT_TOL:
+        raise AssertionError(f"27a: card vs CPU soft {cpu_err}")
+    log(json.dumps({"phase": "sharded_demod", "channels": C5,
+                    "symbols": C5_SYMBOLS, "meshes": res,
+                    "single_device_ff_ms": ff_ms,
+                    "single_device_samples_per_s": C5 * C5_SYMBOLS * SPS
+                    / (ff_ms * 1e-3),
+                    "cpu_soft_max_err": cpu_err,
+                    "shards_share_one_card": True, "card": card}))
+    return res
+
+
+def sharded_full_phase(torch, dev, card) -> dict:
+    """27b: make_sharded_full_demod over CHAN_SHARDS chan shards of the
+    card, after ff warm-up and full_from_ff, 1 + STEADY_BLOCKS blocks of S
+    symbols at 4096 channels: every output and the final carry equal
+    (torch.equal) to single-device demod_block_full, every B1 launch held
+    by B1Gate, B1 launched shards x blocks times; ms a block beside the
+    single device's."""
+    from psk_soft_tpu_torch.models.blockpsk import ff_init, make_ff_demod_fn
+    from psk_soft_tpu_torch.models.full import demod_block_full, full_from_ff
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.parallel.mesh import unshard
+    from psk_soft_tpu_torch.parallel.sharded_full import (
+        make_sharded_full_demod, shard_full_state)
+
+    cfg = c5_cfg()
+    need = S * SPS
+    x = c5_signal(torch, dev, C5, (1 + STEADY_BLOCKS) * S, 272)
+    st_ff, _ = make_ff_demod_fn(cfg, channels=C5)(ff_init(cfg, C5, dev),
+                                                   x[:, :need])
+    state0 = full_from_ff(cfg, st_ff)
+    blocks = [(x[:, b * need:(b + 1) * need].real.T.contiguous(),
+               x[:, b * need:(b + 1) * need].imag.T.contiguous())
+              for b in range(1, 1 + STEADY_BLOCKS)]
+    del x
+
+    def single():
+        st, outs = state0, []
+        for re, im in blocks:
+            st, out = demod_block_full(cfg, st, re, im)
+            outs.append(out)
+        return st, outs
+
+    ref_st, ref = single()
+    single_ms = host_ms(torch, single) / STEADY_BLOCKS
+    res = {}
+    for n in CHAN_SHARDS:
+        mesh = mesh_of(dev, n, 1)
+        fn = make_sharded_full_demod(cfg, mesh)
+
+        def run():
+            st, outs = shard_full_state(state0, mesh), []
+            for re, im in blocks:
+                st, out = fn(st, re, im)
+                outs.append(out)
+            return st, outs
+
+        demod_kernel.demod_full_tm.launches = 0
+        with B1Gate(torch, f"27b chan {n}") as gate:
+            st, outs = run()
+            torch.cuda.synchronize()
+        launches = demod_kernel.demod_full_tm.launches
+        if launches != n * STEADY_BLOCKS:
+            raise AssertionError(f"27b chan {n}: B1 launched {launches} "
+                                 f"times for {n} shards x {STEADY_BLOCKS}")
+        for b, (o, r) in enumerate(zip(outs, ref)):
+            for name, a, w in zip(o._fields, o, r):
+                if not torch.equal(unshard(a), w):
+                    raise AssertionError(f"27b chan {n} block {b}: {name} "
+                                         f"differs from one device")
+        for name, a, w in zip(st._fields, st, ref_st):
+            if not torch.equal(unshard(a), w):
+                raise AssertionError(f"27b chan {n}: carry {name} differs")
+        ms = host_ms(torch, run) / STEADY_BLOCKS
+        res[n] = dict(launches=launches, ms_per_block=ms,
+                      samples_per_s=need * C5 / (ms * 1e-3),
+                      b1_gate=dict(gate.stats))
+    log(json.dumps({"phase": "sharded_full", "channels": C5,
+                    "blocks": STEADY_BLOCKS, "chan_shards": res,
+                    "single_device_ms_per_block": single_ms,
+                    "single_device_samples_per_s": need * C5
+                    / (single_ms * 1e-3),
+                    "shards_share_one_card": True, "card": card}))
+    return res
+
+
+def interp_margins(torch, cfg, x):
+    """(C, S) float64: for each stream symbol of the feed-forward pipeline
+    under a matched filter and timing_interp, the fraction of its window
+    sums' total that moves the centroid across a rounding edge (B1Gate's
+    near-tie measure, INTERP_TIE), from the filtered samples in float64 as
+    the feed-forward pipeline filters them (a zero tail: a lag of ntaps-1
+    samples)."""
+    from psk_soft_tpu_torch.ops.matched_filter import filter_taps
+
+    taps = torch.as_tensor(filter_taps(cfg), dtype=torch.float64,
+                           device=x.device)
+    n_ch, sps, na = x.shape[0], cfg.sps, cfg.num_avg
+    lag = taps.numel() - 1
+
+    def fir(v):
+        v = torch.nn.functional.pad(v.double()[:, None], (lag, 0))
+        return torch.nn.functional.conv1d(v, taps[None, None])[:, 0]
+
+    e = fir(x.real) ** 2 + fir(x.imag) ** 2
+    e = e.reshape(n_ch, -1, sps)
+    cs = torch.cat([torch.zeros_like(e[:, :1]), e.cumsum(1)], dim=1)
+    w = cs[:, na:] - cs[:, :-na]                        # (C, S-na+1, sps)
+    ang = torch.arange(sps, dtype=torch.float64, device=x.device) * (
+        2 * np.pi / sps)
+    zr, zi = (w * torch.cos(ang)).sum(-1), (w * torch.sin(ang)).sum(-1)
+    pos = torch.atan2(zi, zr) * (sps / (2 * np.pi))
+    pos = torch.where(pos < -0.5, pos + sps, pos)
+    total = w.sum(-1)
+    gap = ((pos - torch.floor(pos) - 0.5).abs() * (2 * np.pi / sps)
+           * torch.hypot(zr, zi)
+           / torch.where(total > 0, total, torch.ones_like(total)))
+    return torch.nn.functional.pad(gap, (0, na - 1), value=1.0)
+
+
+def time_profiles(torch, dev):
+    """27c's profiles: (name, cfg, keywords of the factory, (C, T) samples,
+    reference (soft, index, bits-or-None, near-tie margins or None)
+    re-indexed to stream symbols, M for the rotation check or None for a
+    direct one)."""
+    from psk_soft_tpu_torch.models.blockpsk import ff_init, make_ff_demod_fn
+    from psk_soft_tpu_torch.models.mixed import (MixedParams,
+                                                 make_mixed_demod_fn,
+                                                 mixed_init)
+    from psk_soft_tpu_torch.ops.matched_filter import rrc_taps
+
+    def reindex(cfg, out, x):
+        a1 = cfg.num_avg - 1
+        soft = torch.zeros((C5, TIME_SYMBOLS), dtype=torch.complex64,
+                           device=dev)
+        idx = torch.zeros((C5, TIME_SYMBOLS), dtype=torch.int32,
+                          device=dev)
+        soft[:, :TIME_SYMBOLS - a1] = out.soft[:, a1:]
+        idx[:, :TIME_SYMBOLS - a1] = out.sample_index[:, a1:]
+        bits, margins = None, None
+        if cfg.timing_interp:
+            margins = interp_margins(torch, cfg, x)
+        if out.bits is not None:
+            b = out.bits[:, a1:].int()
+            bits = torch.zeros((C5, TIME_SYMBOLS), dtype=torch.int32,
+                               device=dev)
+            bits[:, :TIME_SYMBOLS - a1] = b[..., 0] + 2 * b[..., 1] \
+                + 4 * b[..., 2]
+        return soft, idx, bits, margins
+
+    def ff_ref(cfg, x):
+        _, out = make_ff_demod_fn(cfg, channels=C5)(ff_init(cfg, C5, dev), x)
+        return reindex(cfg, out, x)
+
+    profs = []
+    for name, m, diff, seed in (("qpsk", 4, False, 2731),
+                                ("8psk", 8, False, 2732),
+                                ("qpsk_diff", 4, True, 2733)):
+        cfg = c5_cfg(constellation_size=m, differential=diff)
+        x = c5_signal(torch, dev, C5, TIME_SYMBOLS, seed, m=m, diff=diff)
+        profs.append((name, cfg, {}, x, ff_ref(cfg, x), m))
+    cfg3 = c5_cfg(num_avg=50, constellation_size=8, phase_avg=40,
+                  matched_filter="rrc", rrc_beta=0.35, rrc_span=8,
+                  timing_interp=True)
+    x = c5_signal(torch, dev, C5, TIME_SYMBOLS, 2734, m=8,
+                  pulse=rrc_taps(SPS, 0.35, 8))
+    profs.append(("config3", cfg3, {}, x, ff_ref(cfg3, x), 8))
+    cfg4 = c5_cfg(num_avg=50, phase_avg=20)
+    rng = np.random.default_rng(2735)
+    ms = rng.choice([2, 4, 8], C5)
+    diffs = rng.random(C5) < 0.5
+    x = c5_signal(torch, dev, C5, TIME_SYMBOLS, 2735,
+                  m=torch.as_tensor(ms), diff=torch.as_tensor(diffs))
+    params = MixedParams.make(ms, diffs, dev)
+    _, out = make_mixed_demod_fn(cfg4)(params, mixed_init(cfg4, C5, dev), x)
+    profs.append(("mixed", cfg4, dict(mixed_params=params), x,
+                  reindex(cfg4, out, x), None))
+    x = c5_signal(torch, dev, C5, TIME_SYMBOLS, 2736)
+    profs.append(("int16_int8", c5_cfg(), {}, x, None, 4))
+    return profs
+
+
+def check_time_sharded(torch, what, outs, ref, m):
+    """tests/test_time_sharded_full.py's rule: sample index equal on
+    valid (under timing_interp, apart from near ties: INTERP_TIE),
+    soft after the best M-fold rotation within ROT_TOL (M None: no
+    rotation, and the reference's bits equal), bits re-derived from soft.
+    Returns (soft error, near-tie index differences)."""
+    from psk_soft_tpu_torch.ops import slicers
+
+    soft_re, soft_im, _, packed, idx, valid = outs
+    soft = torch.complex(soft_re, soft_im).T
+    valid = valid.T
+    ref_soft, ref_idx, ref_bits, margins = ref
+    if not (bool(valid.any()) and bool((~valid).any())):
+        raise AssertionError(f"{what}: valid mask {int(valid.sum())}")
+    differ = (idx.T != ref_idx) & valid
+    ties = int(differ.sum())
+    if ties and (margins is None
+                 or float(margins[differ].max()) >= INTERP_TIE):
+        raise AssertionError(f"{what}: sample index differs at {ties}")
+    if m is None:
+        err = float((soft[valid] - ref_soft[valid]).abs().max())
+        if not torch.equal(packed.T[valid], ref_bits[valid]):
+            raise AssertionError(f"{what}: bits differ from the reference")
+    else:
+        err = min(float((soft[valid] * np.exp(2j * np.pi * r / m)
+                         - ref_soft[valid]).abs().max()) for r in range(m))
+        b = slicers.slice_bits(m, soft[valid]).int()
+        if not torch.equal(packed.T[valid], b[:, 0] + 2 * b[:, 1]
+                           + 4 * b[:, 2]):
+            raise AssertionError(f"{what}: bits do not re-derive from soft")
+    if not err < ROT_TOL:
+        raise AssertionError(f"{what}: soft {err}")
+    return err, ties
+
+
+def time_sharded_phase(torch, dev, card) -> dict:
+    """27c: make_time_sharded_full_demod at 4096 x 2048 on TIME_MESHES of
+    the card, in six profiles (QPSK, 8-PSK and differential QPSK at config
+    5's widths; config 3's RRC filter + timing_interp; mixed at config 4's
+    widths; int16 planes in, int8 soft out): each against the single-device
+    ff (mixed: the mixed pipeline; int16: the float32 run on the
+    dequantized planes), every B1 launch held by B1Gate, B1 once a shard a
+    call; ms a call."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel
+    from psk_soft_tpu_torch.parallel.sharded_full import \
+        make_time_sharded_full_demod
+
+    res = {}
+    for name, cfg, kw, x, ref, m in time_profiles(torch, dev):
+        re, im = x.real.T.contiguous(), x.imag.T.contiguous()
+        del x
+        if name == "int16_int8":
+            scale = float(torch.maximum(re.abs().max(), im.abs().max())
+                          ) / 32000.0
+            re16 = torch.round(re / scale).to(torch.int16)
+            im16 = torch.round(im / scale).to(torch.int16)
+            re, im = re16.float() * scale, im16.float() * scale
+        for chan, time_ in TIME_MESHES:
+            what = f"27c {name} {chan}x{time_}"
+            mesh = mesh_of(dev, chan, time_)
+            run = make_time_sharded_full_demod(cfg, mesh, TIME_SYMBOLS, **kw)
+            if name == "int16_int8":
+                run8 = make_time_sharded_full_demod(
+                    cfg, mesh, TIME_SYMBOLS, in_scale=scale,
+                    soft_i8_scale=I8_SCALE)
+                o32 = run(re, im)
+                args, main = (re16, im16), run8
+            else:
+                args, main = (re, im), run
+            for k in demod_kernel.demod_full_tm.mode_launches:
+                demod_kernel.demod_full_tm.mode_launches[k] = 0
+            demod_kernel.demod_full_tm.launches = 0
+            with B1Gate(torch, what) as gate:
+                outs = main(*args)
+                torch.cuda.synchronize()
+            launches = demod_kernel.demod_full_tm.launches
+            modes = {k: v for k, v in
+                     demod_kernel.demod_full_tm.mode_launches.items() if v}
+            if launches != chan * time_:
+                raise AssertionError(f"{what}: B1 launched {launches} times "
+                                     f"on {chan * time_} shards")
+            if name == "int16_int8":
+                valid = outs[5]
+                if not (torch.equal(valid, o32[5])
+                        and torch.equal(outs[3][valid], o32[3][valid])
+                        and torch.equal(outs[4][valid], o32[4][valid])
+                        and outs[0].dtype == torch.int8):
+                    raise AssertionError(f"{what}: differs from float32")
+                err = max(float((q.float() / I8_SCALE
+                                 - f.clamp(-1.27, 1.27)).abs()[valid].max())
+                          for q, f in ((outs[0], o32[0]),
+                                       (outs[1], o32[1])))
+                if not err <= 0.5 / I8_SCALE + 1e-6:
+                    raise AssertionError(f"{what}: int8 soft {err}")
+                if modes.get("int16") != launches:
+                    raise AssertionError(f"{what}: int16 launches {modes}")
+                ties = 0
+            else:
+                err, ties = check_time_sharded(torch, what, outs, ref, m)
+            ms = host_ms(torch, lambda: main(*args))
+            res[f"{name} {chan}x{time_}"] = dict(
+                launches=launches, modes=modes, soft_err=err, ms=ms,
+                samples_per_s=C5 * TIME_SYMBOLS * SPS / (ms * 1e-3),
+                b1_near_ties=gate.stats["index_differ"],
+                b1_padding_outputs=gate.stats.get("padding_outputs", 0),
+                ff_near_ties=ties)
+    log(json.dumps({"phase": "time_sharded_full", "channels": C5,
+                    "symbols": TIME_SYMBOLS, "runs": res,
+                    "shards_share_one_card": True, "card": card}))
+    return res
+
+
+def sharded_channelize_phase(torch, dev, card) -> dict:
+    """27d: make_sharded_channelize on a block of phase 24a's capture (C
+    channels, WB_K taps a branch), rows over WB_TIME time shards of the
+    card, within WB_TOL of channelize_block with a zero carry."""
+    from psk_soft_tpu_torch.ops import channelizer as ch
+    from psk_soft_tpu_torch.parallel.wideband import make_sharded_channelize
+
+    noise = tuple(CPU_C + (C - CPU_C) * k // 4 + 7 for k in range(4))
+    z = torch.from_numpy(wideband_capture(np.random.default_rng(IN_SEED), 1,
+                                          noise)[0]).to(dev)
+    taps = ch.prototype_taps(C, WB_K)
+    _, ref = ch.channelize_block(torch.from_numpy(taps).to(dev),
+                                 ch.channelizer_init(C, WB_K, dev), z)
+    run = make_sharded_channelize(taps, C, mesh_of(dev, 1, WB_TIME))
+    y = run(z.reshape(-1, C))
+    err = float((y - ref).abs().max())
+    if not err <= WB_TOL:
+        raise AssertionError(f"27d: sharded channelizer {err}")
+    ms = host_ms(torch, lambda: run(z.reshape(-1, C)))
+    log(json.dumps({"phase": "sharded_channelize", "channels": C,
+                    "rows": int(y.shape[0]), "time_shards": WB_TIME,
+                    "max_err": err, "ms": ms, "card": card}))
+    return dict(max_err=err, ms=ms)
+
+
+def distributed_phase(torch, dev, card, backend: str = "nccl") -> dict:
+    """27e: DistributedBatchEngine at 4096 channels, 1 + STEADY_BLOCKS
+    blocks and a flush: in this process in a world-size-1 NCCL group, and
+    as two processes over gloo on the card (2048 channels each); the
+    packets of both equal to BatchEngine on the card (the NCCL run exactly;
+    the two processes' halves bits and sample index equal, soft and phase
+    within 1e-5, timestamps and EOS equal)."""
+    import os
+    import socket
+    import tempfile
+
+    from psk_soft_tpu_torch.parallel import launch
+    from psk_soft_tpu_torch.runtime.distributed import DistributedBatchEngine
+    from psk_soft_tpu_torch.runtime.engine_batch import BatchEngine
+    from psk_soft_tpu_torch.runtime.streams import (PORT_BITS,
+                                                    PORT_SAMPLE_INDEX, SRI)
+
+    cfg = c5_cfg()
+    n_sym = (1 + STEADY_BLOCKS) * S + S // 2
+    x = c5_signal(torch, dev, C5, n_sym, 275).cpu().numpy()
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PSK_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    script = os.path.join(tmp.name, "worker.py")
+    with open(script, "w") as f:
+        f.write(DIST_WORKER)
+    t0 = time.perf_counter()
+    worker_dev = "cuda:0" if torch.device(dev).type == "cuda" else "cpu"
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(n_sym), "275", worker_dev, str(C5)],
+        cwd=root,
+        env=dict(env, PSK_OUT=tmp.name, PSK_COORDINATOR=f"localhost:{port}",
+                 PSK_NUM_PROCESSES="2", PSK_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+
+    def bank(eng):
+        eng.set_input_sri(SRI(stream_id="dist", xdelta=1e-6))
+        return drive_bank(eng, x)
+
+    try:
+        ref = bank(BatchEngine(cfg, C5, block_symbols=S, device=dev))
+        launch.initialize(f"localhost:{free_port()}", 1, 0, backend=backend)
+        try:
+            one = torch.ones(1, device=worker_dev)
+            torch.distributed.all_reduce(one)      # the group works
+            mesh = launch.global_mesh(devices=[worker_dev])
+            got = bank(DistributedBatchEngine(cfg, C5, mesh=mesh,
+                                              block_symbols=S))
+        finally:
+            torch.distributed.destroy_process_group()
+        if float(one) != 1.0:
+            raise AssertionError(f"27e: all_reduce over one process {one}")
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if len(got) != len(ref):
+        raise AssertionError("27e: NCCL run emitted another packet count")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        for p in set(a or {}) | set(b or {}):
+            if not (np.array_equal(a[p].data, b[p].data)
+                    and (a[p].t, a[p].eos) == (b[p].t, b[p].eos)):
+                raise AssertionError(f"27e: NCCL run #{i} {p} differs")
+    worst = {"soft": 0.0, "phase": 0.0}
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "DONE" not in out:
+            raise AssertionError(f"27e: worker {r} rc {p.returncode}: "
+                                 f"{err[-3000:]}")
+    two_s = time.perf_counter() - t0
+    for r in range(2):
+        z = np.load(os.path.join(tmp.name, f"dist_{r}.npz"))
+        lo, n = int(z["lo"]), int(z["n"])
+        if (lo, n) != (r * C5 // 2, C5 // 2):
+            raise AssertionError(f"27e: worker {r} owns {lo}+{n}")
+        for i, d in enumerate(ref):
+            for port, pk in (d or {}).items():
+                w = pk.data[lo:lo + n]
+                g = z[f"{i}:{port}"]
+                if float(z[f"{i}:{port}:t"]) != pk.t or \
+                        bool(z[f"{i}:{port}:eos"]) != pk.eos or \
+                        g.shape != w.shape:
+                    raise AssertionError(f"27e: worker {r} #{i} {port}")
+                if port in (PORT_BITS, PORT_SAMPLE_INDEX):
+                    if not np.array_equal(g, w):
+                        raise AssertionError(f"27e: worker {r} #{i} {port}")
+                elif g.size:
+                    k = "soft" if np.iscomplexobj(g) else "phase"
+                    worst[k] = max(worst[k], float(np.abs(g - w).max()))
+    tmp.cleanup()
+    if max(worst.values()) > 1e-5:
+        raise AssertionError(f"27e: two processes vs one: {worst}")
+    log(json.dumps({"phase": "distributed_engine", "channels": C5,
+                    "blocks": 1 + STEADY_BLOCKS, "nccl_world_1": "equal",
+                    "gloo_two_processes": worst,
+                    "two_process_seconds": two_s, "card": card}))
+    return dict(worst=worst, two_process_seconds=two_s)
+
+
+def config5_phase(torch, dev, card, cli) -> dict:
+    """27f: run_config(5, quick=False) on the card (4096 channels, a 1 x 1
+    mesh) and ``python -m psk_soft_tpu_torch baseline --config 5 --full``
+    (started at the phase's start as ``cli``), each pass."""
+    from psk_soft_tpu_torch.eval.baseline_configs import run_config
+
+    t0 = time.perf_counter()
+    r = run_config(5, quick=False, device=dev)
+    dt = time.perf_counter() - t0
+    out, err = cli.communicate(timeout=600)
+    sub = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    if not r["pass"] or r["channels"] != C5 or cli.returncode != 0 \
+            or not sub.get("pass"):
+        raise AssertionError(f"27f: config 5 {r}; CLI rc {cli.returncode} "
+                             f"{out[-500:]} {err[-2000:]}")
+    log(json.dumps({"phase": "config5", "result": r, "seconds": dt,
+                    "cli": sub, "card": card}))
+    return dict(result=r, seconds=dt)
+
+
+def scaling_phase(torch, dev, card) -> dict:
+    """27g: eval/scaling's three reports with SCALING_COUNTS shards of the
+    one card (``shards_share_device``: the "efficiency" is the cost of
+    sharding, not scaling), each path's ms a call and samples/s beside its
+    single shard's; launches counted around each."""
+    from psk_soft_tpu_torch.eval import scaling
+    from psk_soft_tpu_torch.parallel.mesh import shard_devices
+
+    cfg = c5_cfg()
+    devs = shard_devices(dev, max(SCALING_COUNTS))
+    runs = {
+        "channel_ff": lambda: scaling.channel_scaling_report(
+            cfg, device_counts=SCALING_COUNTS, channels_per_device=1024,
+            symbols=S, iters=5, reps=3, devices=devs),
+        "channel_full": lambda: scaling.channel_scaling_report(
+            cfg, device_counts=SCALING_COUNTS, channels_per_device=1024,
+            symbols=S, iters=5, reps=3, pipeline="full", devices=devs),
+        "chain": lambda: scaling.chain_scaling_report(
+            cfg, device_counts=SCALING_COUNTS, channels_per_device=1024,
+            symbols=S, iters=3, reps=2, devices=devs),
+        "time": lambda: scaling.time_shard_report(
+            cfg, time_counts=SCALING_COUNTS, channels=C5,
+            total_symbols=TIME_SYMBOLS, iters=5, reps=3, devices=devs)}
+    res = {}
+    for name, fn in runs.items():
+        rep, counts, dt = counted(torch, fn)
+        if not rep["shards_share_device"]:
+            raise AssertionError(f"27g {name}: shards on separate devices")
+        res[name] = dict(report=rep, launches=counts, seconds=dt)
+        log(json.dumps({"phase": "scaling", "report": name,
+                        "label": "shards of one card (sharding cost, not "
+                                 "scaling)",
+                        "points": [dict(p, ms=p["step_s"] * 1e3)
+                                   for p in rep["points"]],
+                        "launches": counts, "card": card}))
+    return res
+
+
+def dryrun_phase(torch, dev, card) -> dict:
+    """27h: graft_entry.dryrun_multichip over DRYRUN_SHARDS shards of the
+    card (every section's checks), launches counted."""
+    from psk_soft_tpu_torch import graft_entry
+
+    _, counts, dt = counted(torch, lambda: graft_entry.dryrun_multichip(
+        DRYRUN_SHARDS, device=dev))
+    log(json.dumps({"phase": "dryrun_multichip", "shards": DRYRUN_SHARDS,
+                    "launches": counts, "seconds": dt, "card": card}))
+    return counts
+
+
+def sharding_phases(torch, dev, card) -> dict:
+    """Phase 27 (27a-27h), with its total time."""
+    import os
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "psk_soft_tpu_torch", "baseline", "--config",
+         "5", "--full"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=root + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")))
+    try:
+        res = {"demod": sharded_demod_phase(torch, dev, card),
+               "full": sharded_full_phase(torch, dev, card),
+               "time": time_sharded_phase(torch, dev, card),
+               "channelize": sharded_channelize_phase(torch, dev, card),
+               "distributed": distributed_phase(torch, dev, card),
+               "config5": config5_phase(torch, dev, card, cli),
+               "scaling": scaling_phase(torch, dev, card),
+               "dryrun": dryrun_phase(torch, dev, card)}
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    res["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "sharding", "seconds": res["seconds"],
+                    "card": card}))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5609,6 +6400,7 @@ def main() -> int:
         "phase7_chain_infobits_per_s": chain["infobits_per_s"][0],
         "phase22_receiver_infobits_per_s":
             receiver22["rates"]["infobits_per_s"]})
+    shard27 = sharding_phases(torch, dev, card)
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
                     "front_receiver": front23["b1_gate"],
@@ -5617,7 +6409,9 @@ def main() -> int:
                        for k, v in resampled24.items()},
                     "eval_factories": eval25["factories"]["gate"],
                     **{f"eval_chain_fer_{k}": eval25["chain_fer"][k][
-                        "b1_gate"] for k, _, _ in FER_POINTS}}))
+                        "b1_gate"] for k, _, _ in FER_POINTS},
+                    **{f"sharded_full_chan_{n}": v["b1_gate"]
+                       for n, v in shard27["full"].items()}}))
     log(json.dumps({"phase": "launches_by_path", "chain": chain["launches"],
                     "fused": {"timing_frontend_tm": b5["launches"]},
                     "lifecycle": {"demod_full_tm": b1_lifecycle},
@@ -5646,7 +6440,18 @@ def main() -> int:
                     "coded_ber": {k: v["launches"] for k, v in
                                   eval25["coded_ber"].items()},
                     **{f"cli {k}": v["launches"]
-                       for k, v in cli26["runs"].items()}}))
+                       for k, v in cli26["runs"].items()},
+                    **{f"sharded_full chan {n}": {"demod_full_tm":
+                                                  v["launches"]}
+                       for n, v in shard27["full"].items()},
+                    **{f"time_sharded {k}": {"demod_full_tm": v["launches"],
+                                             **{f"demod_full_tm[{m}]": c
+                                                for m, c in
+                                                v["modes"].items()}}
+                       for k, v in shard27["time"].items()},
+                    **{f"scaling {k}": v["launches"]
+                       for k, v in shard27["scaling"].items()},
+                    "dryrun_multichip": shard27["dryrun"]}))
 
     # --- the kernels line ---
     t = timings[False]

@@ -896,7 +896,7 @@ def cmd_probe(args) -> int:
 
 
 def cmd_baseline(args) -> int:
-    """Run one of the BASELINE.json evaluation configs (1-4)."""
+    """Run one of the BASELINE.json evaluation configs (1-5)."""
     from .eval.baseline_configs import run_config
 
     try:
@@ -1237,8 +1237,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_selftest)
 
     bl = sub.add_parser("baseline",
-                        help="run a BASELINE.json evaluation config (1-4; "
-                             "5 waits for ROADMAP A.11)")
+                        help="run a BASELINE.json evaluation config (1-5)")
     bl.add_argument("--config", type=int, required=True, choices=range(1, 6))
     bl.add_argument("--full", action="store_true",
                     help="full-size run (default: quick sizes)")

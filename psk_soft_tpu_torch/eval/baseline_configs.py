@@ -1,11 +1,11 @@
-"""Runnable BASELINE.json evaluation configs 1-4 (port of
+"""Runnable BASELINE.json evaluation configs 1-5 (port of
 ``psk_soft_tpu/eval/baseline_configs.py``).
 
 Each returns a JSON-able summary dict; the CLI exposes them as
 ``python -m psk_soft_tpu_torch baseline --config N``.  ``quick`` shrinks
 sizes so every config also runs on the CPU (the full sizes match
-BASELINE.md).  Config 5 shards over a device mesh and waits for the port's
-``parallel/`` (ROADMAP A.11).
+BASELINE.md).  Config 5 shards over a mesh of the device it is given
+(parallel/): one card is a 1 x 1 mesh, and ``devices`` names more shards.
 """
 
 from __future__ import annotations
@@ -98,12 +98,52 @@ def config4_mixed_64ch(quick: bool = True, device="cuda") -> dict:
             "pass": bool(worst < 0.25)}
 
 
+def config5_sharded_qpsk(quick: bool = True, device="cuda",
+                         devices=None) -> dict:
+    """(5) Many-channel QPSK sharded over a mesh (time + channel axes,
+    overlap-save seams via collectives); asserts seam invariance against a
+    single-device run.  The mesh is sized from the shard devices, as JAX's
+    from ``jax.devices()``: ``devices`` (default ``[device]``, one card a
+    1 x 1 mesh)."""
+    import torch
+
+    from ..models.blockpsk import ff_init, make_ff_demod_fn
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import make_sharded_demod
+    from ..utils.transfer import to_device, to_host
+
+    devices = [device] if devices is None else list(devices)
+    n_dev = len(devices)
+    time_ax = 2 if n_dev >= 2 else 1
+    chan_ax = max(n_dev // time_ax, 1)
+    C = 64 * chan_ax if quick else 4096
+    NS = 1024
+    cfg = DemodConfig(sps=8, num_avg=100, constellation_size=4, phase_avg=50)
+    rng = np.random.default_rng(5)
+    j = rng.integers(0, 4, (C, NS))
+    xs = np.zeros((C, NS * 8), np.complex64)
+    xs[:, 3::8] = np.exp(2j * np.pi * j / 4)
+    xs += (0.01 * rng.standard_normal(xs.shape)).astype(np.complex64)
+
+    dev0 = torch.device(devices[0])
+    fn1 = make_ff_demod_fn(cfg, channels=C)
+    _, out1 = fn1(ff_init(cfg, C, dev0), to_device(xs, dev0))
+    mesh = make_mesh(chan=chan_ax, time=time_ax, devices=devices)
+    run = make_sharded_demod(cfg, mesh, NS)
+    out2 = run(to_device(xs, dev0))
+    h1, h2 = to_host(out1), to_host(out2)
+    d = np.abs(h2.soft[h2.valid] - h1.soft[h1.valid]).max()
+    bits_eq = bool(np.array_equal(h2.bits[h2.valid], h1.bits[h1.valid]))
+    return {"config": 5, "channels": C, "mesh": [chan_ax, time_ax],
+            "max_soft_diff_vs_single_device": float(d),
+            "bits_equal": bits_eq,
+            "pass": bool(d < 1e-3 and bits_eq)}
+
+
 RUNNERS = {1: config1_golden_bpsk, 2: config2_qpsk_freq_offset,
-           3: config3_8psk_rrc_sweep, 4: config4_mixed_64ch}
+           3: config3_8psk_rrc_sweep, 4: config4_mixed_64ch,
+           5: config5_sharded_qpsk}
 
 
 def run_config(n: int, quick: bool = True, device="cuda") -> dict:
-    if n == 5:
-        raise ValueError("BASELINE config 5 shards over a device mesh; it "
-                         "waits for the port's parallel/ (ROADMAP A.11)")
     return RUNNERS[n](quick=quick, device=device)

@@ -51,7 +51,7 @@ import torch
 
 from ...ops.linear_fit import endpoint_fir_weights
 from ...ops.phase import TWO_PI, UNWRAP_TREND_LEN
-from ...utils.build import REPO_ROOT, build_shared
+from ...utils.build import REPO_ROOT, build_shared, count_launch, load_once
 
 CSRC = REPO_ROOT / "psk_soft_tpu_torch" / "csrc"
 SOURCE = CSRC / "demod_full.cu"
@@ -646,7 +646,7 @@ def matched_filter_tm(raw_re, raw_im, taps, *, in_scale: float = 1.0):
     if rc != 0:
         raise RuntimeError(f"matched_filter_tm launch failed: CUDA error "
                            f"{rc}")
-    matched_filter_tm.launches += 1
+    count_launch(matched_filter_tm)
     return out[0], out[1]
 
 
@@ -676,7 +676,7 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
@@ -815,11 +815,10 @@ def demod_full_tm(win_re, win_im, x_re, x_im, state_planes, *, sps: int,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"demod_full_tm launch failed: CUDA error {rc}")
-    demod_full_tm.launches += 1
-    for mode, on in (("int16", i16), ("timing_interp", timing_interp),
-                     ("matched_filter", taps is not None), ("mixed", mixed)):
-        if on:
-            demod_full_tm.mode_launches[mode] += 1
+    count_launch(demod_full_tm, [
+        mode for mode, on in (("int16", i16), ("timing_interp", timing_interp),
+                              ("matched_filter", taps is not None),
+                              ("mixed", mixed)) if on])
     return o_sre, o_sim, o_phase, o_bits, o_idx, new_state
 
 

@@ -24,12 +24,11 @@ sums differ by a few ulps (pure noise) they may pick different bins.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ...ops import timing
-from ...utils.build import build_shared
+from ...utils.build import build_shared, count_launch, load_once
 from .demod_kernel import (CSRC, NVCC_FLAGS, TIMING_HEADER, nvcc_path,
                            plane_align, timing_plan)
 
@@ -74,7 +73,7 @@ def timing_frontend_tm_ref(win_re, win_im, x_re, x_im, *, sps: int,
             idx.T.contiguous())
 
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
@@ -139,7 +138,7 @@ def timing_frontend_tm(win_re, win_im, x_re, x_im, *, sps: int,
     if rc != 0:
         raise RuntimeError(f"timing_frontend_tm launch failed: CUDA error "
                            f"{rc}")
-    timing_frontend_tm.launches += 1
+    count_launch(timing_frontend_tm)
     return sel_re, sel_im, idx
 
 

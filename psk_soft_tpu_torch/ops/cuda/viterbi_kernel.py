@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...utils.build import REPO_ROOT, build_shared
+from ...utils.build import REPO_ROOT, build_shared, count_launch, load_once
 from .demod_kernel import NVCC_FLAGS, TIMING_HEADER, nvcc_path, plane_align
 
 SOURCE = REPO_ROOT / "psk_soft_tpu_torch" / "csrc" / "viterbi.cu"
@@ -315,7 +315,7 @@ def viterbi_traceback_ref(dec, start, *, k: int, s_count: int,
 
 # -- kernels ------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def load_library():
     """Build (at first use) and load the kernel library.  Returns
     (ctypes library, compiler output of this build or "")."""
@@ -334,7 +334,7 @@ def load_library():
     return lib, log
 
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def load_plan_check():
     """The kernel's own check of B4's plan (csrc/traceback_plan.h), built
     with the host C++ compiler, so it runs without a card.  Returns the
@@ -397,7 +397,7 @@ def viterbi_fused(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
             k, t_pad, t_actual, b, int(bool(terminate)),
             ctypes.c_void_p(stream))
     _raise_on(rc, "viterbi_fused")
-    viterbi_fused.launches += 1
+    count_launch(viterbi_fused)
     return bits
 
 
@@ -423,7 +423,7 @@ def viterbi_acs(llr_t, pm0, exp_flat, *, k: int, s_count: int, n: int,
             _ptr(llr_t), _ptr(pm0), _ptr(exp_flat), _ptr(dec), _ptr(pm), n,
             s_count, k, t_pad, t_actual, b, ctypes.c_void_p(stream))
     _raise_on(rc, "viterbi_acs")
-    viterbi_acs.launches += 1
+    count_launch(viterbi_acs)
     return dec, pm
 
 
@@ -456,7 +456,7 @@ def viterbi_traceback(dec, start, *, k: int, s_count: int,
             _ptr(dec), _ptr(start), _ptr(bits), _ptr(words), _ptr(fmap),
             s_count, k, t_actual, b, *plan, ctypes.c_void_p(stream))
     _raise_on(rc, "viterbi_traceback")
-    viterbi_traceback.launches += 1
+    count_launch(viterbi_traceback)
     return bits
 
 

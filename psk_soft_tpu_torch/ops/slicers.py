@@ -68,6 +68,19 @@ def slice_bits(constellation_size: int, soft: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported constellation size {constellation_size}")
 
 
+def slice_code(constellation_size: int, soft: torch.Tensor) -> torch.Tensor:
+    """Packed (LSB-first) int32 symbol code for a static M."""
+    if constellation_size == 2:
+        return (soft.real < 0).to(torch.int32)
+    if constellation_size == 4:
+        sr = (soft.real < 0).to(torch.int32)
+        si = (soft.imag < 0).to(torch.int32)
+        return (sr ^ si) + 2 * si
+    if constellation_size in (8, 16, 32):
+        return mpsk_code(constellation_size, soft)
+    raise ValueError(f"unsupported constellation size {constellation_size}")
+
+
 def slice_code_dynamic(m_size: torch.Tensor,
                        soft: torch.Tensor) -> torch.Tensor:
     """Packed symbol code with a per-element constellation size (mixed

@@ -83,8 +83,13 @@ def test_baseline_config1_and_config5(capsys):
     got, ref = json.loads(out), json.loads(jout)
     assert got["pass"] and got["symbols"] == ref["symbols"] == 901
     assert abs(got["max_soft_error"] - ref["max_soft_error"]) < 1e-4
-    assert cli.main(["baseline", "--config", "5", "--device", "cpu"]) == 2
-    assert "A.11" in capsys.readouterr().err
+    rc, out, jrc, jout = _run_both(
+        capsys, ["baseline", "--config", "5", "--device", "cpu"],
+        ["baseline", "--config", "5"])
+    assert rc == jrc == 0
+    got, ref = json.loads(out), json.loads(jout)
+    assert got["pass"] and ref["pass"] and got["config"] == 5
+    assert got["mesh"] == [1, 1] and got["channels"] == 64
 
 
 def test_selftest(capsys):

@@ -8,7 +8,9 @@ baseline_configs} against the JAX eval modules on the same seeds.
   decoder on the CPU stands in for kernel B2); union_bound equal, with the
   same ValueErrors (the chain FER: tests/test_torch_chain_fer.py).
 - eval/baseline_configs: configs 1-4 quick pass on the CPU and agree with
-  JAX's; config 5 raises naming ROADMAP A.11.
+  JAX's; config 5 (the sharded demod) passes on a one-device mesh, and on
+  8 CPU shards agrees with JAX's on its 8 virtual CPU devices: the same
+  mesh, channels and verdicts, soft within the config's 1e-3 gate.
 """
 
 import dataclasses
@@ -166,5 +168,20 @@ def test_baseline_config_passes_and_matches_jax(n):
 
 
 def test_baseline_config5_waits_for_sharding():
-    with pytest.raises(ValueError, match="A.11"):
-        baseline_configs.run_config(5, quick=True, device="cpu")
+    # Config 5 is ported (parallel/): one device is a 1 x 1 mesh.
+    got = baseline_configs.run_config(5, quick=True, device="cpu")
+    assert got["pass"] and got["mesh"] == [1, 1] and got["channels"] == 64
+
+
+def test_baseline_config5_matches_jax():
+    import jax
+
+    n = len(jax.devices())
+    got = baseline_configs.config5_sharded_qpsk(quick=True,
+                                                devices=["cpu"] * n)
+    ref = jax_baseline.run_config(5, quick=True)
+    assert got.keys() == ref.keys()
+    assert got["pass"] and ref["pass"]
+    for k in ("config", "channels", "mesh", "bits_equal"):
+        assert got[k] == ref[k], k
+    assert got["max_soft_diff_vs_single_device"] < 1e-3

@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ("bank_demod", "coded_link", "frame_sync", "hetero_rate_bank",
-            "one_launch_chain", "stream_demod", "wideband_bank")
+            "one_launch_chain", "sharded_mesh", "stream_demod",
+            "wideband_bank")
 NUMBER = re.compile(r"-?\d+(?:\.(\d+))?(?:e[-+]?\d+)?")
 
 

@@ -12,8 +12,9 @@ ChannelizerFrontEnd into FullKernelBatchEngine, ResampledBankEngine, the
 blind probe, and a FeedThread on a NativePacketQueue; then the TX and
 evaluation layer: the CLI's selftest and baseline, measure_ber,
 measure_coded_ber, measure_chain_fer and the scanned factories; then the
-CLI's gen-frames into demod-batch with frame sync and FEC, and every
-example module imported."""
+CLI's gen-frames into demod-batch with frame sync and FEC, every example
+module imported, and the sharding layer: a sharded demod step on a 2 x 2
+mesh of CPU shards and a DistributedBatchEngine step in one process."""
 
 import os
 import subprocess
@@ -215,7 +216,19 @@ fst, fout = tblockpsk.make_scanned_ff_demod_fn(cfg)(
 assert to_host(fout).soft.shape == (2, 64)
 assert {f"psk_soft_tpu_torch.examples.{n}" for n in (
     "bank_demod", "coded_link", "frame_sync", "hetero_rate_bank",
-    "one_launch_chain", "stream_demod", "wideband_bank")} <= set(names)
+    "one_launch_chain", "sharded_mesh", "stream_demod",
+    "wideband_bank")} <= set(names)
+from psk_soft_tpu_torch.parallel.mesh import make_mesh
+from psk_soft_tpu_torch.parallel.sharded import make_sharded_demod
+from psk_soft_tpu_torch.runtime.distributed import DistributedBatchEngine
+sout = make_sharded_demod(gcfg, make_mesh(2, 2, ["cpu"] * 4), 300)(
+    torch.from_numpy(np.tile(gx, (4, 1))))
+assert sout.soft.shape == (4, 300) and int(sout.valid.sum()) == 4 * 201
+deng = DistributedBatchEngine(cfg, 128, mesh=make_mesh(4, devices=["cpu"] * 4),
+                              block_symbols=64)
+deng.push_block((rng.standard_normal((128, 256))
+                 + 0j).astype(np.complex64))
+assert deng.step_packets() and (deng.local_offset, deng.channels) == (0, 128)
 with tempfile.TemporaryDirectory() as tmp:
     cap, rx = os.path.join(tmp, "cap.cf32"), os.path.join(tmp, "rx")
     uw = "0,1,2,3,3,2,1,0,0,2,1,3,1,1,2,2,3,0,2,1,1,3,0,2,2,0,3,1,0,3,1,2"
