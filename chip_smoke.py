@@ -248,7 +248,19 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      (labelled: sharding's cost, not scaling), B1 and B2 counted; (h)
      graft_entry.dryrun_multichip(8) on the card (B1, B2, B3, B4).  Each
      path's ms a call beside its single-device path's.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-27.  Each
+ 28. the port's bench (psk_soft_tpu_torch/tools/bench.py, the root
+     bench.py's counterpart) through ``bench.main`` in-process on every
+     mode at --iters 5 --reps 2: the default run (B1 with and without
+     debug ports, the feed-forward pipeline, the chain), --pipeline full
+     with int16 in and int8 soft out, ff, exact and fused, --profile
+     config3, mixed and chain, --engine (float32; int16 + int8; the mixed
+     bank), the three receivers and --mesh with the chain report; each
+     mode returns 0 with its lines, each line names the card and carries
+     its gate (B1Gate, check_b5, the chain's steady check, the frame
+     check; tools/gates.py, which holds the gates of phases 7, 9 and
+     22-27 too), and the kernels of each mode launched in its timed
+     windows; each mode's launches counted around its whole run.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-28.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
@@ -273,14 +285,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from psk_soft_tpu_torch.tools.gates import (INTERP_TIE, NEAR_TIE_REL,
+                                            PHASE_TOL, SOFT_TOL, B1Gate,
+                                            check_b5, check_frames,
+                                            required_frames)
+
 C, S, SPS, NUM_AVG, PHASE_AVG = 1024, 512, 8, 100, 50
 WARM = 256                    # warm-up symbols before the kernel checks
 STEADY_BLOCKS = 10            # engine blocks past the hand-off
-PHASE_TOL, SOFT_TOL = 2e-3, 3e-3
 QPSK_TOL = 0.05               # engine soft decisions vs the QPSK points
 PM_TOL = 1e-5                 # B3 final path metrics vs the plain version
-NEAR_TIE_REL = 1e-5           # B5 on noise: an index may differ only here
-INTERP_TIE = 1e-4             # timing_interp: window-sum change to a tie
 FUSED_SOFT_TOL, FUSED_PHASE_TOL = 2e-4, 1e-3   # tests/test_fused.py:67-75
 CFO_TOL = 1e-4                # acquire_cfo estimates vs the planted offsets
 CPU_C = 128                   # channels of the CPU comparison runs
@@ -1026,38 +1040,16 @@ def viterbi_phases(torch, dev, card: str, event_ms) -> dict:
 
 
 def plant_chain_stream(fmt, code, crc, rng, lfsr=None):
-    """bench.py's _plant_unaligned_frames with the port's own encoder, CRC
-    and Gray mapping: K7 + CRC-16 frames on the cadence max(sep, 104) + 1
-    over the S-periodic stream, planted with wraparound; with ``lfsr``
-    each framed message (info || CRC) is scrambled before the encoder.
-    Returns (starts, infos (C, k, n_msg), x (C, S*SPS) complex64,
-    n_info)."""
-    from psk_soft_tpu_torch.ops import crc as crc_ops, fec, scramble, slicers
+    """tools/bench.plant_unaligned_frames (bench.py's
+    _plant_unaligned_frames) at C x S: K7 + CRC-16 frames on the cadence
+    max(sep, 104) + 1 over the S-periodic stream, planted with wraparound;
+    with ``lfsr`` each framed message (info || CRC) is scrambled before
+    the encoder.  Returns (starts, infos (C, k, n_msg), x (C, S*SPS)
+    complex64, n_info)."""
+    from psk_soft_tpu_torch.tools.bench import plant_unaligned_frames
 
-    n_info = fec.info_bits_for(code, fmt.payload * 2)
-    cadence = max(fmt.separation, 104) + 1
-    k_frames = S // cadence
-    starts = [(17 + j * cadence) % S for j in range(k_frames)]
-    infos = rng.integers(0, 2, (C, k_frames, n_info - crc.degree)).astype(
-        np.int8)
-    framed = crc_ops.append_crc(crc, infos)
-    if lfsr is not None:
-        framed = scramble.additive_scramble(lfsr, framed).numpy()
-    coded = fec.conv_encode(code, framed).numpy()
-    labels = slicers.bit_labels(4, "gray").astype(np.int64)
-    lut = np.zeros(4, np.int64)
-    lut[labels[:, 0] + 2 * labels[:, 1]] = np.arange(4)
-    pay = lut[coded[..., 0::2] + 2 * coded[..., 1::2]]   # (C, k, payload)
-    idx = rng.integers(0, 4, (C, S))
-    uw = np.asarray(fmt.uw, np.int64)
-    for j, s0 in enumerate(starts):
-        cols = (s0 + np.arange(fmt.frame_len)) % S      # wraparound plant
-        idx[:, cols[:fmt.uw_len]] = uw[None, :]
-        idx[:, cols[fmt.uw_len:]] = pay[:, j]
-    x = np.repeat(np.exp(1j * (2 * np.pi * idx / 4 + 0.4)), SPS,
-                  axis=1).astype(np.complex64)
-    x += (0.01 * (rng.standard_normal(x.shape)
-                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    starts, _, infos, x, n_info, _ = plant_unaligned_frames(
+        C, S, SPS, fmt, code, crc, rng, lfsr)
     return starts, infos, x, n_info
 
 
@@ -1120,26 +1112,12 @@ def chain_phases(torch, dev, card: str, profile) -> dict:
     cpu_frames = drive(engine("cpu"))
     cpu_s = time.perf_counter() - t0
 
-    a1 = NUM_AVG - 1
-    planted = {(c, b * S + s0): j for b in range(n_blocks)
-               for j, s0 in enumerate(starts) for c in range(C)}
-    # Demod rows exist for input symbols below n_blocks * S - a1; every
-    # frame after the warm-up block whose symbols all have rows must come.
-    must = {key for key in planted if key[1] >= S
-            and key[1] + fmt.frame_len <= n_blocks * S - a1}
-    keys = [(f.channel, f.start) for f in frames]
-    if len(set(keys)) != len(keys):
-        raise AssertionError("a frame was decoded twice")
-    if not must <= set(keys) <= set(planted):
-        raise AssertionError(f"{len(must - set(keys))} planted frames "
-                             f"missed, {len(set(keys) - set(planted))} "
-                             f"unplanted frames decoded")
-    for f in frames:
-        if not f.crc_ok or not np.array_equal(
-                f.info_bits, infos[f.channel, planted[(f.channel,
-                                                       f.start)]]):
-            raise AssertionError(f"frame {(f.channel, f.start)}: CRC "
-                                 f"{f.crc_ok} or info bits wrong")
+    # Demod rows exist for input symbols below n_blocks * S - NUM_AVG + 1;
+    # every frame after the warm-up block whose symbols all have rows must
+    # come.
+    must = required_frames(starts, C, S, n_blocks, fmt.frame_len,
+                           NUM_AVG - 1)
+    check_frames("chain engine", frames, starts, infos, S, must)
     if gpu.overflow_peaks or gpu.crc_failures:
         raise AssertionError(f"overflow {gpu.overflow_peaks}, CRC failures "
                              f"{gpu.crc_failures}")
@@ -1226,7 +1204,6 @@ def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
     pure noise a differing sample index is allowed only at a near tie of
     the plain version's top two window sums.  Then its times on
     ``blocks``.  Returns the numbers of the kernels line."""
-    from psk_soft_tpu_torch.ops import timing
     from psk_soft_tpu_torch.ops.cuda import frontend_kernel as fk
 
     kw = dict(sps=SPS, num_avg=NUM_AVG)
@@ -1289,31 +1266,16 @@ def frontend_phase(torch, dev, card: str, event_ms, blocks) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     re = torch.randn((rows, C), generator=gen, device=dev)
     im = torch.randn((rows, C), generator=gen, device=dev)
-    args = split(re, im)
-    got = fk.timing_frontend_tm(*args, **kw)
-    ref = fk.timing_frontend_tm_ref(*args, **kw)
-    e = (re * re + im * im).reshape(S + NUM_AVG - 1, SPS, C).permute(2, 0, 1)
-    top2 = timing.windowed_bin_sums(e, NUM_AVG).topk(2, dim=-1).values
-    gap = ((top2[..., 0] - top2[..., 1]) / top2[..., 0]).T       # (S, C)
+    noise = check_b5("on noise", *split(re, im), **kw)
     torch.cuda.synchronize()
-    differ = got[2] != ref[2]
-    n_differ = int(differ.sum())
-    widest = float(gap[differ].max()) if n_differ else 0.0
-    same = ~differ
-    if widest >= NEAR_TIE_REL or not (
-            torch.equal(got[0][same], ref[0][same])
-            and torch.equal(got[1][same], ref[1][same])):
-        raise AssertionError(f"B5 on noise: {n_differ} indices differ, "
-                             f"widest gap {widest} (near-tie bound "
-                             f"{NEAR_TIE_REL})")
     log(json.dumps({"phase": "frontend_vs_plain", "kernel": "B5",
                     "channels": C, "symbols": S, "sps": SPS,
                     "num_avg": NUM_AVG, "planted_equal": True,
-                    "noise_index_differ": n_differ,
+                    "noise_index_differ": noise["index_differ"],
                     "noise_outputs": S * C,
-                    "noise_widest_relative_gap": widest,
+                    "noise_widest_relative_gap": noise["widest_gap"],
                     "near_tie_bound": NEAR_TIE_REL}))
-    del re, im, e, top2, gap
+    del re, im, noise
 
     targs = [(p[0][-keep:], p[1][-keep:], c[0], c[1])
              for p, c in zip(blocks[-1:] + blocks[:-1], blocks)]
@@ -3246,7 +3208,7 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
     rx.syncer.engine.set_device_tap(capture)
     for w in wrappers.values():
         w.launches = 0
-    with B1Gate(torch, "receiver") as gate:
+    with B1Gate("receiver") as gate:
         t0 = time.perf_counter()
         frames = drive(rx, C)
         card_s = time.perf_counter() - t0
@@ -3257,23 +3219,9 @@ def receiver_phase(torch, dev, card: str, profile, chain_rate) -> dict:
 
     # Every frame at a planted offset, once, CRC green, exact info bits;
     # every planted frame of the steady blocks present.
-    by_off = {s0: j for j, s0 in enumerate(starts)}
-    keys = [(f.channel, f.start) for f in frames]
-    if len(set(keys)) != len(keys):
-        raise AssertionError("receiver: a frame was popped twice")
-    for f in frames:
-        j = by_off.get(f.start % S)
-        if (j is None or not f.crc_ok or f.suspect
-                or not np.array_equal(f.info_bits, infos[f.channel, j])):
-            raise AssertionError(f"receiver frame {(f.channel, f.start)}: "
-                                 f"offset {f.start % S}, CRC {f.crc_ok}")
-    a1 = NUM_AVG - 1
-    must = {(c, b * S + s0) for b in range(1, n_blocks) for s0 in starts
-            for c in range(C) if b * S + s0 + fmt.frame_len <= n_blocks * S
-            - a1}
-    if not must <= set(keys):
-        raise AssertionError(f"receiver: {len(must - set(keys))} planted "
-                             f"frames missed")
+    must = required_frames(starts, C, S, n_blocks, fmt.frame_len,
+                           NUM_AVG - 1)
+    check_frames("receiver", frames, starts, infos, S, must)
 
     # --- the stack on the CPU, and its stages replayed on the CPU ---
     t0 = time.perf_counter()
@@ -3495,221 +3443,6 @@ def group_sync_phase(torch, dev, card: str) -> int:
     return len(frames)
 
 
-# --- B1 held per launch on a service path (ROADMAP C.1) ---------------------
-
-class B1Gate:
-    """A checking wrapper over kernel B1 (``demod_kernel.demod_full_tm`` as
-    models/full calls it), installed here only for a path's main run: every
-    launch is held
-    against ``demod_full_tm_ref`` on the same window, planes and carry.
-    Bits equal; a differing sample index only where both picks' window
-    sums (in float64) lie within NEAR_TIE_REL of the largest, as phase 3
-    rules on noise; soft within SOFT_TOL and phase within PHASE_TOL at the
-    outputs whose tracker window (phase_avg + the trend) holds no differing
-    pick (the others are counted, with their largest errors).  On ``noise_channels`` (no signal) bits, soft
-    and phase are counted, not held.  With ``tied_bits`` (streams at low
-    SNR, where another sample is another value and can slip the tracker a
-    whole 2*pi/M turn for the rest of the block) a differing pick taints
-    its channel's outputs from there to the end of the block, and bits are
-    held where soft and phase are and counted at the tainted outputs.  A
-    path that runs without debug ports gets one more launch with them on
-    (a checking launch: the counts are put back), held bit-equal to the
-    path's own.  Launch counts stay the kernel's (the plain version does
-    not count).  Under a matched filter the near-tie sums are of the
-    filtered samples; under timing_interp (the index rounds a centroid) a
-    differing index is a near tie where a change of INTERP_TIE of the
-    window sums' total moves the centroid across a rounding edge (the
-    centroid of a flat window is ill-conditioned).  The gate also covers the
-    time-sharded factory (parallel/sharded_full calls B1 itself), whose
-    edge shards' halos are zero padding (outputs whose windows touch it are
-    counted, not held: ``_unpadded``), and holds concurrent shards'
-    launches one at a time."""
-
-    def __init__(self, torch, label: str, noise_channels=(),
-                 tied_bits: bool = False):
-        from psk_soft_tpu_torch.ops.cuda import demod_kernel
-
-        self.torch, self.label, self.dk = torch, label, demod_kernel
-        self.kernel = demod_kernel.demod_full_tm
-        self.noise = sorted(noise_channels)
-        self.tied_bits = tied_bits
-        self.lock = threading.Lock()
-        from psk_soft_tpu_torch.ops.phase import UNWRAP_TREND_LEN
-        self.trend = UNWRAP_TREND_LEN
-        self.stats = dict(launches_checked=0, outputs=0, index_differ=0,
-                          near_tie_widest=0.0, soft_max_err=0.0,
-                          phase_max_err=0.0, noise_bits_differ=0,
-                          noise_index_differ=0)
-
-    def __enter__(self):
-        from psk_soft_tpu_torch.models import full
-        from psk_soft_tpu_torch.parallel import sharded_full
-
-        class Checked:              # the kernel module, B1 checked
-            demod_full_tm = self._locked_check
-
-            def __getattr__(_, name):
-                return getattr(self.dk, name)
-
-        self._callers = (full, sharded_full)
-        for mod in self._callers:
-            mod.demod_kernel = Checked()
-        return self
-
-    def __exit__(self, *exc):
-        for mod in self._callers:
-            mod.demod_kernel = self.dk
-
-    def _locked_check(self, *planes, **kw):
-        with self.lock:
-            return self._check(*planes, **kw)
-
-    @staticmethod
-    def _unpadded(torch, re, im, kw, s_n: int, span: int):
-        """(S,) bool: the outputs whose timing window and tracker reach
-        (``span`` outputs back) touch no padding, a symbol with a raw row
-        that is exactly zero on every channel (a time shard's edge halo;
-        no stream has such rows).  Padded outputs are counted, not held:
-        their windows hold no signal (the ROADMAP's zero-window ties)."""
-        sps, na = kw["sps"], kw["num_avg"]
-        rows = [torch.cat(pair) for pair in (re, im)]
-        zero = ((rows[0] == 0).all(1) & (rows[1] == 0).all(1)).int()
-        zc = torch.cat([zero.new_zeros(1), zero.cumsum(0)])
-        extra = len(kw["mf_taps"]) - 1 if kw.get("mf_taps") else 0
-        t = torch.arange(s_n + na - 1, device=zero.device)
-        hi = torch.clamp((t + 1) * sps + extra, max=zero.numel())
-        pad = ((zc[hi] - zc[t * sps]) > 0).int()
-        pc = torch.cat([pad.new_zeros(1), pad.cumsum(0)])
-        o = torch.arange(s_n, device=zero.device)
-        return (pc[o + na] - pc[torch.clamp(o - span, min=0)]) == 0
-
-    def _check(self, win_re, win_im, x_re, x_im, planes, **kw):
-        torch = self.torch
-        got = self.kernel(win_re, win_im, x_re, x_im, planes, **kw)
-        path_out = got
-        if not kw.get("debug_ports", True):
-            kw = dict(kw, debug_ports=True)
-            k = self.kernel
-            counts = (k.launches, dict(k.mode_launches))
-            got = k(win_re, win_im, x_re, x_im, planes, **kw)
-            k.launches = counts[0]
-            k.mode_launches.update(counts[1])
-            for i in (0, 1, 3, 5):
-                if not torch.equal(path_out[i], got[i]):
-                    raise AssertionError(f"{self.label}: B1 with debug "
-                                         f"ports differs from the path's "
-                                         f"launch (output {i})")
-        ref = self.dk.demod_full_tm_ref(win_re, win_im, x_re, x_im, planes,
-                                        **kw)
-        sps, na = kw["sps"], kw["num_avg"]
-        s_n, n_ch = got[0].shape
-        sig = torch.ones(n_ch, dtype=torch.bool, device=x_re.device)
-        sig[self.noise] = False
-        span = kw["phase_avg"] + self.trend
-        held = self._unpadded(torch, (win_re, x_re), (win_im, x_im), kw,
-                              s_n, span)
-        hold = sig[None, :] & held[:, None]
-        g_idx, r_idx = got[4].long(), ref[4].long()
-        same = g_idx == r_idx
-        if not self.tied_bits and not torch.equal(got[3][hold],
-                                                  ref[3][hold]):
-            raise AssertionError(f"{self.label}: B1 bits differ from the "
-                                 f"plain version at "
-                                 f"{int((got[3] != ref[3])[hold].sum())} "
-                                 f"symbols of signal channels")
-        # A differing pick moves the tracker's phase for the outputs whose
-        # window (phase_avg + the trend) holds it: those are counted, and
-        # soft and phase held on the rest.
-        differ = ~same & held[:, None]
-        cs = torch.cat([torch.zeros_like(differ[:1], dtype=torch.int32),
-                        differ.int().cumsum(0)])
-        low = torch.clamp(torch.arange(1, s_n + 1, device=cs.device) - span
-                          - 1, min=0)
-        tainted = (cs[1:] - (0 if self.tied_bits else cs[low])) > 0
-        keep = ~tainted & hold
-        st = self.stats
-        for k, (a, b) in (("soft_max_err", (got[0], ref[0])),
-                          ("soft_max_err", (got[1], ref[1])),
-                          ("phase_max_err", (got[2], ref[2]))):
-            d = (a - b).abs()
-            if bool(keep.any()):
-                st[k] = max(st[k], float(d[keep].max()))
-            moved = tainted & hold
-            if bool(moved.any()):
-                st[f"near_tie_{k}"] = max(st.get(f"near_tie_{k}", 0.0),
-                                          float(d[moved].max()))
-        st["near_tie_outputs"] = st.get("near_tie_outputs", 0) + int(
-            (tainted & hold).sum())
-        if self.tied_bits:
-            bits_differ = got[3] != ref[3]
-            if bool((bits_differ & keep).any()):
-                raise AssertionError(
-                    f"{self.label}: B1 bits differ from the plain version "
-                    f"at {int((bits_differ & keep).sum())} outputs no "
-                    f"differing pick moved")
-            st["near_tie_bits_differ"] = st.get("near_tie_bits_differ", 0) \
-                + int((bits_differ & tainted & hold).sum())
-        if not bool(held.all()):
-            st["padding_outputs"] = st.get("padding_outputs", 0) + int(
-                (~held).sum()) * n_ch
-            st["padding_index_differ"] = st.get("padding_index_differ", 0) \
-                + int((~same & ~held[:, None]).sum())
-        n_differ = int(differ.sum())
-        if n_differ:
-            # Exact window sums of the [window | block] energies (of the
-            # filtered samples under a matched filter).
-            raw = [torch.cat([w, x]) for w, x in ((win_re, x_re),
-                                                   (win_im, x_im))]
-            if kw.get("mf_taps"):
-                raw = self.dk.matched_filter_tm_ref(
-                    *raw, kw["mf_taps"], in_scale=kw.get("in_scale", 1.0))
-            e = raw[0].double() ** 2 + raw[1].double() ** 2
-            e = e[:(s_n + na - 1) * sps].reshape(s_n + na - 1, sps, n_ch)
-            cs = torch.cat([torch.zeros_like(e[:1]), e.cumsum(0)])
-            wsum = cs[na:] - cs[:-na]                       # (S, sps, C)
-            if kw.get("timing_interp"):
-                # The index is round(p) of the circular centroid p of the
-                # window sums W; a tie is where moving W by a fraction
-                # INTERP_TIE of its total moves p across a rounding edge:
-                # (distance to the edge) * (2pi/sps) * |z| / sum(W) below
-                # it (|z| the centroid's resultant, small where W is flat).
-                ang = torch.arange(sps, dtype=torch.float64,
-                                   device=e.device) * (2 * np.pi / sps)
-                zr = (wsum * torch.cos(ang)[:, None]).sum(1)
-                zi = (wsum * torch.sin(ang)[:, None]).sum(1)
-                pos = torch.atan2(zi, zr) * (sps / (2 * np.pi))
-                pos = torch.where(pos < -0.5, pos + sps, pos)
-                total = wsum.sum(1)
-                gap = ((pos - torch.floor(pos) - 0.5).abs() * (2 * np.pi / sps)
-                       * torch.hypot(zr, zi)
-                       / torch.where(total > 0, total, torch.ones_like(total)))
-                widest = float(gap[differ].max())
-                bound = INTERP_TIE
-            else:
-                top = wsum.max(dim=1).values
-                gap_g = (top - wsum.gather(1, g_idx[:, None]).squeeze(1)
-                         ) / top
-                gap_r = (top - wsum.gather(1, r_idx[:, None]).squeeze(1)
-                         ) / top
-                widest = float(torch.maximum(gap_g, gap_r)[differ].max())
-                bound = NEAR_TIE_REL
-            st["near_tie_widest"] = max(st["near_tie_widest"], widest)
-            if widest >= bound:
-                raise AssertionError(
-                    f"{self.label}: B1 picks another sample than its plain "
-                    f"version at {n_differ} outputs, widest gap {widest} "
-                    f"(near-tie bound {bound}): a B1 fault")
-        st["launches_checked"] += 1
-        st["outputs"] += s_n * n_ch
-        st["index_differ"] += int((differ & hold).sum())
-        st["noise_index_differ"] += int((differ & ~sig[None, :]).sum())
-        st["noise_bits_differ"] += int((got[3] != ref[3])[:, ~sig].sum())
-        if st["soft_max_err"] > SOFT_TOL or st["phase_max_err"] > PHASE_TOL:
-            raise AssertionError(f"{self.label}: B1 against its plain "
-                                 f"version: {st}")
-        return path_out
-
-
 # --- phase 23: the front-end receiver (ROADMAP A.8 part 1) ------------------
 
 FRONT_SEED = 23
@@ -3864,7 +3597,7 @@ def front_receiver_phase(torch, dev, card: str, profile, rx22: dict) -> dict:
                 "viterbi_traceback": viterbi_kernel.viterbi_traceback}
     for w in wrappers.values():
         w.launches = 0
-    with B1Gate(torch, "front-end receiver", FRONT_NOISE) as gate:
+    with B1Gate("front-end receiver", FRONT_NOISE) as gate:
         t0 = time.perf_counter()
         frames, cm0, drains = drive(rx, planes)
         card_s = time.perf_counter() - t0
@@ -4138,7 +3871,7 @@ def wideband_phase(torch, dev, card: str, event_ms) -> dict:
     # --- the main path on the card, B1's count read around it ---
     card_planes = []
     demod_kernel.demod_full_tm.launches = 0
-    with B1Gate(torch, "wideband channelizer", noise) as gate:
+    with B1Gate("wideband channelizer", noise) as gate:
         t0 = time.perf_counter()
         gpu = drive(dev, C, card_planes)
         torch.cuda.synchronize()
@@ -4417,7 +4150,7 @@ def resampled_phase(torch, dev, card: str, event_ms) -> dict:
             return pkts + eng.flush_packets(), fed[0], eng
 
         demod_kernel.demod_full_tm.launches = 0
-        gate = B1Gate(torch, f"resampled bank ({name})")
+        gate = B1Gate(f"resampled bank ({name})")
         t0 = time.perf_counter()
         gpu, fed, eng = run(dev, C, gate)
         torch.cuda.synchronize()
@@ -4723,7 +4456,7 @@ def factories_phase(torch, dev, card) -> dict:
     xs_re = x_re.reshape(EVAL_K, S * SPS, C)
     xs_im = x_im.reshape(EVAL_K, S * SPS, C)
     scan = full.make_scanned_full_demod_fn(cfg)
-    with B1Gate(torch, "scanned full factory") as gate:
+    with B1Gate("scanned full factory") as gate:
         (st, out), launches, _ = counted(torch, lambda: scan(state0, xs_re,
                                                              xs_im))
     res = {"scanned": launches["demod_full_tm"], "gate": gate.stats}
@@ -4745,7 +4478,7 @@ def factories_phase(torch, dev, card) -> dict:
     state4, y_re, y_im, _ = mode_inputs(
         torch, dev, cfg4, mixed_channels(WARM + S, ms, diffs), params=params)
     step = full.make_mixed_full_demod_fn(cfg4)
-    with B1Gate(torch, "mixed full factory") as gate4:
+    with B1Gate("mixed full factory") as gate4:
         (_, mout), mlaunch, _ = counted(torch, lambda: step(state4, y_re,
                                                             y_im))
     if mout.soft_re.shape != (S, C) or not bool(
@@ -4791,7 +4524,7 @@ def chain_fer_phase(torch, dev, card) -> dict:
     n_msg = chain_msg_bits(*args[1:])
     res, pts = {}, {}
     for name, esn0, kw in FER_POINTS:
-        with B1Gate(torch, f"chain FER {name}", tied_bits=True) as gate:
+        with B1Gate(f"chain FER {name}", tied_bits=True) as gate:
             p, launches, dt = counted(torch, lambda: measure_chain_fer(
                 *args, esn0, channels=C, blocks=FER_BLOCKS, seed=FER_SEED,
                 device=dev, **kw))
@@ -5627,7 +5360,7 @@ def sharded_full_phase(torch, dev, card) -> dict:
             return st, outs
 
         demod_kernel.demod_full_tm.launches = 0
-        with B1Gate(torch, f"27b chan {n}") as gate:
+        with B1Gate(f"27b chan {n}") as gate:
             st, outs = run()
             torch.cuda.synchronize()
         launches = demod_kernel.demod_full_tm.launches
@@ -5823,7 +5556,7 @@ def time_sharded_phase(torch, dev, card) -> dict:
             for k in demod_kernel.demod_full_tm.mode_launches:
                 demod_kernel.demod_full_tm.mode_launches[k] = 0
             demod_kernel.demod_full_tm.launches = 0
-            with B1Gate(torch, what) as gate:
+            with B1Gate(what) as gate:
                 outs = main(*args)
                 torch.cuda.synchronize()
             launches = demod_kernel.demod_full_tm.launches
@@ -6096,6 +5829,104 @@ def sharding_phases(torch, dev, card) -> dict:
     res["seconds"] = time.perf_counter() - t0
     log(json.dumps({"phase": "sharding", "seconds": res["seconds"],
                     "card": card}))
+    return res
+
+
+# --- phase 28: the port's bench (tools/bench) on every mode -----------------
+
+BENCH_ARGS = ["--iters", "5", "--reps", "2"]
+# (name, flags, lines it prints, kernels its timed windows must launch)
+BENCH_MODES = (
+    ("default", [], 4, ("demod_full_tm", "viterbi_fused")),
+    ("pipeline full i16 i8", ["--pipeline", "full", "--ingest", "i16",
+                              "--soft", "i8"], 2,
+     ("demod_full_tm", "demod_full_tm[int16]", "viterbi_fused")),
+    ("pipeline ff", ["--pipeline", "ff"], 1, ()),
+    ("pipeline exact", ["--pipeline", "exact"], 1, ()),
+    ("pipeline fused", ["--pipeline", "fused"], 1, ("timing_frontend_tm",)),
+    ("profile config3", ["--profile", "config3"], 1,
+     ("demod_full_tm[matched_filter]", "demod_full_tm[timing_interp]")),
+    ("profile mixed", ["--profile", "mixed"], 1, ("demod_full_tm[mixed]",)),
+    ("profile chain", ["--profile", "chain"], 1,
+     ("demod_full_tm", "viterbi_fused")),
+    ("engine", ["--engine"], 2, ("demod_full_tm",)),
+    ("engine i16 i8", ["--engine", "--ingest", "i16", "--soft", "i8"], 2,
+     ("demod_full_tm[int16]",)),
+    ("engine mixed", ["--engine", "--profile", "mixed"], 2,
+     ("demod_full_tm[mixed]",)),
+    ("receiver", ["--receiver"], 1, ("demod_full_tm", "viterbi_fused")),
+    ("receiver fused", ["--receiver", "--receiver-fused"], 1,
+     ("demod_full_tm", "viterbi_fused")),
+    ("receiver frames-only", ["--receiver", "--receiver-frames-only"], 1,
+     ("demod_full_tm", "viterbi_fused")),
+    ("mesh", ["--mesh", "--profile", "chain"], 3,
+     ("demod_full_tm", "viterbi_fused")),
+)
+
+
+def bench_phase(torch, dev, card) -> dict:
+    """Phase 28: ``tools/bench.main`` in-process on every mode at
+    BENCH_ARGS (the default run, each --pipeline, each --profile, the
+    engines with int16 in and int8 soft out and the mixed bank, the three
+    receivers, the scaling reports): each returns 0 having printed its
+    lines, every line names the card, every line of a mode but the
+    scaling reports carries its gate (the bench gates each path before
+    timing it and raises on a failure), and the mode's timed windows
+    launched its kernels.  Each mode's launches are counted around its
+    whole run (warm-up and gate included).  Returns {mode: counts}."""
+    import io
+
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, frontend_kernel
+    from psk_soft_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    wrappers = dict(kernel_counts(),
+                    timing_frontend_tm=frontend_kernel.timing_frontend_tm)
+    modes = demod_kernel.demod_full_tm.mode_launches
+    res = {}
+    for name, flags, n_lines, kernels in BENCH_MODES:
+        for w in wrappers.values():
+            w.launches = 0
+        for k in modes:
+            modes[k] = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(flags + BENCH_ARGS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {k: w.launches for k, w in wrappers.items()}
+        counts.update({f"demod_full_tm[{k}]": v for k, v in modes.items()
+                       if v})
+        lines = [json.loads(r) for r in buf.getvalue().splitlines()]
+        if rc != 0 or len(lines) != n_lines:
+            raise AssertionError(f"28 {name}: rc {rc}, {len(lines)} lines "
+                                 f"of {n_lines}")
+        timed = {}
+        for line in lines:
+            if (line.get("card") != card
+                    or line.get("device") != torch.device(dev).type):
+                raise AssertionError(f"28 {name}: a line names "
+                                     f"{line.get('card')}, not {card}")
+            if "gate" not in line and not line["metric"].startswith(
+                    "scaling report"):
+                raise AssertionError(f"28 {name}: a line without its gate")
+            for k, v in line["launches"].items():
+                timed[k] = timed.get(k, 0) + v
+            log(json.dumps({"phase": "bench", "mode": name,
+                            **{k: v for k, v in line.items()
+                               if k != "timing"}}))
+        missing = [k for k in kernels if not timed.get(k)]
+        if missing:
+            raise AssertionError(f"28 {name}: {missing} not launched in the "
+                                 f"timed windows ({timed})")
+        res[name] = counts
+        log(json.dumps({"phase": "bench_mode", "mode": name,
+                        "argv": flags + BENCH_ARGS, "lines": len(lines),
+                        "launches": counts, "seconds": seconds,
+                        "card": card}))
+    log(json.dumps({"phase": "bench_total",
+                    "seconds": time.perf_counter() - t0, "card": card}))
     return res
 
 
@@ -6401,6 +6232,7 @@ def main() -> int:
         "phase22_receiver_infobits_per_s":
             receiver22["rates"]["infobits_per_s"]})
     shard27 = sharding_phases(torch, dev, card)
+    bench28 = bench_phase(torch, dev, card)
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
                     "front_receiver": front23["b1_gate"],
@@ -6451,7 +6283,8 @@ def main() -> int:
                        for k, v in shard27["time"].items()},
                     **{f"scaling {k}": v["launches"]
                        for k, v in shard27["scaling"].items()},
-                    "dryrun_multichip": shard27["dryrun"]}))
+                    "dryrun_multichip": shard27["dryrun"],
+                    **{f"bench {k}": v for k, v in bench28.items()}}))
 
     # --- the kernels line ---
     t = timings[False]

@@ -39,6 +39,16 @@ def windowed_bin_sums(e_rows: torch.Tensor, num_avg: int) -> torch.Tensor:
     return upper - torch.cat([zero, lower], dim=-2)
 
 
+def windowed_bin_sums_direct(e_rows: torch.Tensor,
+                             num_avg: int) -> torch.Tensor:
+    """Reference windowed reduction (a sum over each window, no prefix
+    sums); cross-checks the cumsum-diff path of :func:`windowed_bin_sums`,
+    same shapes."""
+    if num_avg == 1:
+        return e_rows
+    return e_rows.unfold(-2, num_avg, 1).sum(-1)
+
+
 def select_decision_samples(s_rows: torch.Tensor, w: torch.Tensor):
     """First-max intra-symbol index of ``w`` and the decision sample of
     ``s_rows`` (both (..., S, sps)).  Returns (sample_index int32, sel)."""

@@ -14,7 +14,8 @@ evaluation layer: the CLI's selftest and baseline, measure_ber,
 measure_coded_ber, measure_chain_fer and the scanned factories; then the
 CLI's gen-frames into demod-batch with frame sync and FEC, every example
 module imported, and the sharding layer: a sharded demod step on a 2 x 2
-mesh of CPU shards and a DistributedBatchEngine step in one process."""
+mesh of CPU shards and a DistributedBatchEngine step in one process.  The
+walk includes tools/ (the bench, the gates, the kernel timers)."""
 
 import os
 import subprocess
@@ -214,6 +215,8 @@ fst, fout = tblockpsk.make_scanned_ff_demod_fn(cfg)(
     tblockpsk.ff_init(cfg, device="cpu"), to_device(gx[:2 * 256], "cpu")
     .reshape(2, 256))
 assert to_host(fout).soft.shape == (2, 64)
+assert {f"psk_soft_tpu_torch.tools.{n}" for n in (
+    "bench", "fir_bounds", "gates", "kernel_times")} <= set(names)
 assert {f"psk_soft_tpu_torch.examples.{n}" for n in (
     "bank_demod", "coded_link", "frame_sync", "hetero_rate_bank",
     "one_launch_chain", "sharded_mesh", "stream_demod",

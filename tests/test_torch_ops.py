@@ -143,6 +143,23 @@ def test_timing(num_avg):
     np.testing.assert_array_equal(sel.numpy(), np.asarray(sel_ref))
 
 
+@pytest.mark.parametrize("num_avg", [1, 7, 50])
+def test_windowed_bin_sums_direct(num_avg):
+    """The direct windowed sum against JAX's reduce_window and against the
+    cumsum-diff path on the same energies."""
+    rng = np.random.default_rng(100 + num_avg)
+    e = np.abs(_cplx(rng, (4, 64 + num_avg - 1, 8))) ** 2
+    w = timing.windowed_bin_sums_direct(torch.from_numpy(e), num_avg)
+    w_ref = np.asarray(j_timing.windowed_bin_sums_direct(jnp.asarray(e),
+                                                         num_avg))
+    assert w.shape == w_ref.shape == (4, 64, 8)
+    np.testing.assert_allclose(w.numpy(), w_ref, rtol=1e-5, atol=TOL)
+    np.testing.assert_allclose(
+        w.numpy(), timing.windowed_bin_sums(torch.from_numpy(e),
+                                            num_avg).numpy(),
+        rtol=1e-5, atol=TOL)
+
+
 def test_argmax_keeps_first_maximum():
     """Exact ties pick bin 0, like std::max_element (tests/test_tiebreak)."""
     w = torch.ones((3, 10, 8))
