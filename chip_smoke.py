@@ -260,12 +260,34 @@ are plain PyTorch, as they are plain XLA in the JAX package.
      check; tools/gates.py, which holds the gates of phases 7, 9 and
      22-27 too), and the kernels of each mode launched in its timed
      windows; each mode's launches counted around its whole run.
-Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-28.  Each
+ 29. conformance: the port held to the JAX package's randomized suites
+     (psk_soft_tpu_torch/testing/conformance.py, the cases of
+     tests/test_fuzz_full_kernel.py, test_fuzz_output_formats.py,
+     test_fuzz_bitlayer.py and test_soak*.py) at shapes no other phase
+     takes, one line a case with its launch plan: (a) B1 against its plain
+     version (B1Gate) at every full-kernel and format case and at sps 2,
+     num_avg 20, phase_avg 10, QPSK, each at 1024, 1002 and 1001 channels
+     (16-, 8- and 4-byte copies; 2-byte on int16 planes): the feed-forward
+     warm-up on the card, full_from_ff, two blocks, with the case's int16
+     planes, int8 soft, debug ports off, unpacked outputs and RRC filter
+     (stage 0); (b) B5 against its plain version (check_b5) at each case's
+     sps and num_avg at 1024 and 1001 channels; (c) B2 through the
+     bit-layer loopback of every tests/test_fuzz_bitlayer.py case at 1024
+     channels (K3, K7, punctured 2/3 and 3/4; check_loopback, frames equal
+     to a 128-channel CPU run), and B3 + B4 through the stream-FEC soak
+     script at K3 and K7 over 1024 rows, popped bits equal to the plain
+     decoder's on the card's LLRs (check_fec_soak); (d) the engine soaks as
+     event scripts through StreamEngine, BatchEngine and
+     FullKernelBatchEngine (B1Gate) at 128 channels on the card and on
+     the CPU, packets held equal by compare_service (a differing sample
+     pick only at a near tie, TieRecord) and the metrics equal.
+Phases run in the order 1-5, 9-11, 14, 15, 6-8, 12, 13, 16-29.  Each
 path's launch counts are set to 0 just before it runs and read just after;
 the kernels line takes B1's and B2's from phase 7, B3's and B4's from
 phase 20 (their times at its shape), B5's from phase 10, B1's int16,
 timing_interp, matched-filter, config-3 and stage-0 launches from phase 14
-and its mixed launches from phase 15.
+and its mixed launches from phase 15; each kernel's conformance_launches
+are phase 29's.
 
 The last two lines of standard output are a JSON object describing each
 kernel, then ``{"ok": true, "device": {...}}``.
@@ -287,7 +309,9 @@ import numpy as np
 
 from psk_soft_tpu_torch.tools.gates import (INTERP_TIE, NEAR_TIE_REL,
                                             PHASE_TOL, SOFT_TOL, B1Gate,
-                                            check_b5, check_frames,
+                                            TieRecord, check_b5,
+                                            check_fec_soak, check_frames,
+                                            check_loopback, compare_service,
                                             required_frames)
 
 C, S, SPS, NUM_AVG, PHASE_AVG = 1024, 512, 8, 100, 50
@@ -1378,54 +1402,6 @@ def fused_phase(torch, dev, card: str, frames, profile) -> int:
 
     profile(feed, card, "fused pipeline, planes resident", blocks=10)
     return launches
-
-
-def compare_service(gpu, cpu, what: str, rows=None) -> dict:
-    """Packet lists of an engine, card against CPU: the same packets
-    (None where None), ports, SRIs, timestamps, EOS and sriChanged flags;
-    bits and sample index equal; soft within SOFT_TOL and phase within
-    PHASE_TOL over the finite values, with NaN and inf at the same places.
-    ``rows`` keeps the first rows of each card packet's (C, n) data, for a
-    CPU run of fewer channels.  Returns the largest errors."""
-    from psk_soft_tpu_torch.runtime.streams import (PORT_BITS, PORT_PHASE,
-                                                    PORT_SAMPLE_INDEX)
-
-    worst = {"soft": 0.0, "phase": 0.0}
-    if len(gpu) != len(cpu):
-        raise AssertionError(f"{what}: {len(gpu)} vs {len(cpu)} outputs")
-    for i, (a, b) in enumerate(zip(gpu, cpu)):
-        if (a is None) != (b is None) or (a is not None
-                                          and set(a) != set(b)):
-            raise AssertionError(f"{what} #{i}: ports differ")
-        for port in a or {}:
-            pa, pb = a[port], b[port]
-            da = pa.data
-            if rows is not None and da.ndim == 2:
-                da = da[:rows]
-            if ((pa.t, pa.eos, pa.sri, pa.sri_changed)
-                    != (pb.t, pb.eos, pb.sri, pb.sri_changed)
-                    or da.shape != pb.data.shape
-                    or da.dtype != pb.data.dtype):
-                raise AssertionError(f"{what} #{i} {port}: metadata differs")
-            if port in (PORT_BITS, PORT_SAMPLE_INDEX):
-                if not np.array_equal(da, pb.data):
-                    raise AssertionError(f"{what} #{i} {port}: differs at "
-                                         f"{int((da != pb.data).sum())}")
-                continue
-            fa, fb = np.isfinite(da), np.isfinite(pb.data)
-            if not (np.array_equal(fa, fb) and np.array_equal(
-                    np.isnan(da), np.isnan(pb.data))
-                    and np.array_equal(da[~fa & ~np.isnan(da)],
-                                       pb.data[~fb & ~np.isnan(pb.data)])):
-                raise AssertionError(f"{what} #{i} {port}: non-finite "
-                                     f"values differ")
-            if fa.any():
-                key = "phase" if port == PORT_PHASE else "soft"
-                worst[key] = max(worst[key], float(
-                    np.abs(da[fa] - pb.data[fa]).max()))
-    if worst["soft"] > SOFT_TOL or worst["phase"] > PHASE_TOL:
-        raise AssertionError(f"{what}: errors {worst}")
-    return worst
 
 
 def lifecycle_phases(torch, dev, card: str, frames) -> int:
@@ -5930,6 +5906,351 @@ def bench_phase(torch, dev, card) -> dict:
     return res
 
 
+CONF_C = (1024, 1002, 1001)   # 29a: B1's channels (16-, 8-, 4-byte rows)
+CONF_B5_C = (1024, 1001)      # 29b: B5's
+CONF_LOOP_C = 1024            # 29c: loopback channels (B2)
+CONF_FEC_ROWS = 1024          # 29c: stream-FEC soak rows (B3 + B4)
+CONF_FEC_SEEDS = (400,)       # 29c: of conformance.FEC_SOAK_SEEDS
+
+
+def b1_mode(case: dict) -> str:
+    """A B1 case's modes, as one word: f32 or i16 in, then the matched
+    filter, timing_interp, int8 soft, no debug ports, unpacked outputs."""
+    cfg = case["cfg"]
+    parts = ["i16" if case["i16"] else "f32"]
+    if cfg.get("matched_filter", "none") != "none":
+        parts.append(cfg["matched_filter"])
+    parts += [w for w, on in (("interp", cfg.get("timing_interp")),
+                              ("i8", case["soft_i8"]),
+                              ("nodebug", not case["debug_ports"]),
+                              ("unpacked", case["pack_out"] is False)) if on]
+    return "+".join(parts)
+
+
+def conformance_b1(torch, dev, card) -> dict:
+    """29a: kernel B1 against its plain version (B1Gate) at every
+    full-kernel and format case of the JAX fuzz suites and the sps-2 case
+    (testing/conformance.b1_cases), at CONF_C channels: the port's
+    feed-forward warm-up on the card, full_from_ff, then two blocks (the
+    second's window a view of the first's rows), with the case's options
+    (int16 planes, int8 soft, debug ports off, pack_out off; RRC through
+    stage 0, held with tied_bits).  One line a case and channel count with
+    B1's launch plan."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.models import blockpsk, full
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+    from psk_soft_tpu_torch.testing import conformance as cf
+
+    plans, plan_fn = [], dk.launch_plan
+
+    def recording(*a, **k):
+        plans.append(plan_fn(*a, **k))
+        return plans[-1]
+
+    res, combos = {}, {}
+    dk.launch_plan = recording
+    try:
+        for case in cf.b1_cases():
+            cfg = DemodConfig(**case["cfg"])
+            sps, keep = cfg.sps, full.window_rows(cfg)
+            warm_t, run_t = case["warm"] * sps, case["run"] * sps
+            xs = cf.fuzz_signal(cfg, case["warm"] + 2 * case["run"],
+                                max(CONF_C))
+            scale = cf.FORMAT_SCALE if case["soft_i8"] else None
+            for n_ch in CONF_C:
+                x = torch.from_numpy(xs[:n_ch]).to(dev)
+                fn = blockpsk.make_ff_demod_fn(cfg, channels=n_ch)
+                st_ff, _ = fn(blockpsk.ff_init(cfg, n_ch, dev), x[:, :warm_t])
+                raw_win = (x[:, warm_t - keep:warm_t]
+                           if cfg.matched_filter != "none" else None)
+                st = full.full_from_ff(cfg, st_ff, raw_win=raw_win)
+                run = xs[:n_ch, warm_t:]
+                in_scale = 1.0
+                if case["i16"]:
+                    in_scale, p_re, p_im = cf.int16_wire(run)
+                    st = full.quantize_full_state(st, in_scale)
+                else:
+                    p_re = np.ascontiguousarray(run.real.T)
+                    p_im = np.ascontiguousarray(run.imag.T)
+                p_re = torch.from_numpy(p_re).to(dev)
+                p_im = torch.from_numpy(p_im).to(dev)
+                label = f"29a {case['name']} C {n_ch}"
+                plans.clear()
+                # Under the RRC filter at odd sps the pulse peaks half a
+                # sample between two bins a symbol apart, so a near-tie
+                # pick is another symbol: tied_bits.
+                with B1Gate(label, tied_bits=raw_win is not None) as gate:
+                    for b in range(2):
+                        st, out = full.demod_block_full(
+                            cfg, st, p_re[b * run_t:(b + 1) * run_t],
+                            p_im[b * run_t:(b + 1) * run_t],
+                            in_scale=in_scale, pack_out=case["pack_out"],
+                            soft_i8_scale=scale,
+                            debug_ports=case["debug_ports"])
+                    torch.cuda.synchronize()
+                if gate.stats["launches_checked"] != 2:
+                    raise AssertionError(f"{label}: "
+                                         f"{gate.stats['launches_checked']} "
+                                         f"B1 launches held, not 2")
+                plan = plans[0] if plans else None     # None off the card
+                res[(case["name"], n_ch)] = gate.stats
+                combo = (case["i16"], cfg.matched_filter != "none",
+                         cfg.timing_interp)
+                combos[combo] = combos.get(combo, 0) + 2
+                log(json.dumps({
+                    "phase": "conformance", "kernel": "B1",
+                    "case": case["name"], "C": n_ch, "sps": sps,
+                    "num_avg": cfg.num_avg, "phase_avg": cfg.phase_avg,
+                    "M": cfg.constellation_size, "mode": b1_mode(case),
+                    "plan": plan and {
+                        "group": plan.timing.group,
+                        "chunk": plan.timing.chunk, "vec": plan.timing.vec,
+                        "track_chunk": plan.chunk,
+                        "fir_vec": plan.fir.vec if plan.fir else None},
+                    "result": "pass", "gate": gate.stats, "card": card}))
+    finally:
+        dk.launch_plan = plan_fn
+    return dict(cases=res, combos=combos)
+
+
+def conformance_b5(torch, dev, card) -> dict:
+    """29b: kernel B5 against its plain version (check_b5) at each B1
+    case's (sps, num_avg) on its signal, at CONF_B5_C channels; the window
+    a view of the rows before the block, as an engine's carry is."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel as dk
+    from psk_soft_tpu_torch.testing import conformance as cf
+
+    res = {}
+    for case in cf.b1_cases():
+        cfg = DemodConfig(**case["cfg"])
+        sps, na = cfg.sps, cfg.num_avg
+        t0, t1 = case["warm"] * sps, (case["warm"] + case["run"]) * sps
+        xs = cf.fuzz_signal(cfg, case["warm"] + case["run"], max(CONF_B5_C))
+        for n_ch in CONF_B5_C:
+            re = torch.from_numpy(np.ascontiguousarray(
+                xs[:n_ch].real.T)).to(dev)
+            im = torch.from_numpy(np.ascontiguousarray(
+                xs[:n_ch].imag.T)).to(dev)
+            w0 = t0 - (na - 1) * sps
+            planes = (re[w0:t0], im[w0:t0], re[t0:t1], im[t0:t1])
+            plan = dk.timing_plan(n_ch, sps, dk.plane_align(*planes))
+            label = f"29b {case['name']} C {n_ch}"
+            got = check_b5(label, *planes, sps=sps, num_avg=na)
+            res[(case["name"], n_ch)] = got
+            log(json.dumps({
+                "phase": "conformance", "kernel": "B5", "case": case["name"],
+                "C": n_ch, "sps": sps, "num_avg": na,
+                "phase_avg": cfg.phase_avg, "M": cfg.constellation_size,
+                "mode": "f32", "plan": {"group": plan.group,
+                                        "chunk": plan.chunk,
+                                        "vec": plan.vec},
+                "result": "pass", "gate": got, "card": card}))
+    return res
+
+
+def conformance_fec(torch, dev, card) -> dict:
+    """29c: B2 through the bit-layer loopback of every case of
+    tests/test_fuzz_bitlayer.py at CONF_LOOP_C channels (check_loopback;
+    frames equal to the same stack on the CPU over the first CPU_C
+    channels), and B3 + B4 through the stream-FEC soak scripts at K3 and
+    K7 over CONF_FEC_ROWS rows, popped bits equal to the plain decoder's
+    on the CPU fed the card's LLRs (check_fec_soak)."""
+    from psk_soft_tpu_torch.ops import fec
+    from psk_soft_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from psk_soft_tpu_torch.ops.framesync import FrameFormat
+    from psk_soft_tpu_torch.runtime.crc import FrameCrcChecker
+    from psk_soft_tpu_torch.runtime.fec import (FecFrameDecoder,
+                                                StreamFecDecoder)
+    from psk_soft_tpu_torch.runtime.framesync import FrameSyncer
+    from psk_soft_tpu_torch.runtime.scramble import FrameDescrambler
+    from psk_soft_tpu_torch.testing import conformance as cf
+
+    stages = (FrameSyncer, FecFrameDecoder, FrameDescrambler,
+              FrameCrcChecker)
+    res = {}
+    for case in cf.BITLAYER_CASES:
+        m, payload, _, il_rows, labeling, _, _ = case
+        code, lfsr, crc = cf.bitlayer_parts(case)
+        uw, starts, infos, soft = cf.bitlayer_stream(case, CONF_LOOP_C)
+        fmt = FrameFormat(uw=uw, payload=payload, m=m, threshold=0.6)
+        runs = []
+        for device, n_ch in ((dev, CONF_LOOP_C), ("cpu", CPU_C)):
+            sync, top = cf.frame_stack(stages, n_ch, fmt, code, lfsr, crc,
+                                       il_rows, labeling, device=device)
+            before = vk.viterbi_fused.launches
+            runs.append(cf.run_loopback(sync, top, soft[:n_ch]))
+            torch.cuda.synchronize()
+            if len(runs) == 1:
+                launches = vk.viterbi_fused.launches - before
+        label = f"29c loopback {cf.bitlayer_id(case)}"
+        n = check_loopback(label, runs[0], starts, infos,
+                           code is not None, crc is not None)
+        frames_close(label, runs[0], runs[1], 1e-5, n_ch=CPU_C)
+        if code is not None and torch.device(dev).type == "cuda" \
+                and launches < 1:
+            raise AssertionError(f"{label}: B2 not launched")
+        plan = (vk.launch_plan(code.states, code.n, 64, CONF_LOOP_C, True)
+                if code is not None else None)
+        res[cf.bitlayer_id(case)] = dict(frames=n, viterbi_fused=launches)
+        log(json.dumps({
+            "phase": "conformance", "kernel": "B2", "case":
+            cf.bitlayer_id(case), "C": CONF_LOOP_C, "M": m,
+            "code": case[2], "mode": labeling,
+            "plan": plan and {"lanes_per_row": plan.lanes_per_row,
+                              "rows_per_warp": plan.rows_per_warp},
+            "frames": n, "launches": launches, "result": "pass",
+            "card": card}))
+
+    llrs = fec.psk_llrs
+    for k, code in ((3, fec.CODE_K3), (7, fec.CODE_K7)):
+        for seed in CONF_FEC_SEEDS:
+            script = cf.fec_soak_script(seed, CONF_FEC_ROWS)
+            runs = []
+            for device in (dev, "cpu"):
+                if runs:                # the card's LLRs, on the CPU
+                    fec.psk_llrs = lambda m, s, **kw: llrs(      # noqa: E731
+                        m, s.to(dev), **kw).cpu()
+                before = (vk.viterbi_acs.launches,
+                          vk.viterbi_traceback.launches)
+                try:
+                    dec = StreamFecDecoder(
+                        CONF_FEC_ROWS, code, m=4, depth=cf.FEC_SOAK_DEPTH,
+                        block_steps=cf.FEC_SOAK_BLOCK, device=device)
+                    runs.append(cf.run_fec_soak(dec, script))
+                    torch.cuda.synchronize()
+                finally:
+                    fec.psk_llrs = llrs
+                if len(runs) == 1:
+                    counts = dict(
+                        viterbi_acs=vk.viterbi_acs.launches - before[0],
+                        viterbi_traceback=vk.viterbi_traceback.launches
+                        - before[1])
+            label = f"29c stream FEC K{k} seed {seed}"
+            bits = check_fec_soak(label, *runs)
+            if torch.device(dev).type == "cuda" and min(counts.values()) < 1:
+                raise AssertionError(f"{label}: B3/B4 not launched {counts}")
+            plan = vk.launch_plan(code.states, code.n, cf.FEC_SOAK_BLOCK,
+                                  CONF_FEC_ROWS, False)
+            res[f"stream K{k} {seed}"] = dict(bits=bits, **counts)
+            log(json.dumps({
+                "phase": "conformance", "kernel": "B3+B4",
+                "case": f"stream-fec K{k} seed {seed}", "C": CONF_FEC_ROWS,
+                "M": 4, "code": f"k{k}", "mode": "stream",
+                "plan": {"lanes_per_row": plan.lanes_per_row,
+                         "rows_per_warp": plan.rows_per_warp},
+                "bits": bits, "launches": counts, "result": "pass",
+                "card": card}))
+    return res
+
+
+def conformance_soaks(torch, dev, card) -> dict:
+    """29d: the engine soaks of tests/test_soak.py as event scripts
+    (testing/conformance): each stream script through StreamEngine, each
+    batch script (at CPU_C channels) through BatchEngine and the
+    FullKernelBatchEngine soak at its 128 channels (B1, held by
+    B1Gate), on the card and on
+    the CPU, packets held equal by compare_service (a differing sample
+    pick only at a near tie: TieRecord of the card run) and the metrics
+    equal."""
+    from psk_soft_tpu_torch.config import DemodConfig
+    from psk_soft_tpu_torch.runtime import engine, streams
+    from psk_soft_tpu_torch.testing import conformance as cf
+
+    def stream(device, script):
+        eng = engine.StreamEngine(DemodConfig(**cf.STREAM_SOAK_CFG),
+                                  cf.STREAM_SOAK_BLOCK, device=device)
+        return eng, cf.run_stream_script(eng, streams, DemodConfig, script)
+
+    def batch(device, script):
+        eng = engine.BatchEngine(DemodConfig(**cf.BATCH_SOAK_CFG), CPU_C,
+                                 cf.BATCH_SOAK_BLOCK, device=device)
+        eng.set_input_sri(streams.SRI(stream_id="bank", xdelta=0.01))
+        return eng, cf.run_bank_script(eng, DemodConfig, script)
+
+    def full_kernel(device, script):
+        eng = engine.FullKernelBatchEngine(DemodConfig(**cf.FULL_SOAK_CFG),
+                                           cf.FUZZ_C, cf.FULL_SOAK_BLOCK,
+                                           device=device)
+        eng.set_input_sri(streams.SRI(stream_id="fk", xdelta=0.01))
+        return eng, cf.run_bank_script(eng, DemodConfig, script, drain=False)
+
+    cases = ([(f"StreamEngine {s}", stream, cf.stream_soak_script(s), 2e-3)
+              for s in cf.STREAM_SOAK_SEEDS]
+             + [(f"BatchEngine {s}", batch, cf.batch_soak_script(s, CPU_C),
+                 2e-3) for s in cf.BATCH_SOAK_SEEDS]
+             + [("FullKernelBatchEngine", full_kernel,
+                 cf.full_soak_script(), SOFT_TOL)])
+    res = {}
+    for name, run, script, soft_tol in cases:
+        label = f"29d {name}"
+        b1 = kernel_counts()["demod_full_tm"]
+        before = b1.launches
+        with B1Gate(label) as gate, TieRecord() as ties:
+            g_eng, got = run(dev, script)
+            torch.cuda.synchronize()
+        launches = b1.launches - before
+        c_eng, ref = run("cpu", script)
+        err = compare_service([o for _, o, _ in got], [o for _, o, _ in ref],
+                              label, ties=ties, soft_tol=soft_tol)
+        if dataclasses.asdict(g_eng.metrics) != dataclasses.asdict(
+                c_eng.metrics):
+            raise AssertionError(f"{label}: metrics {g_eng.metrics} vs "
+                                 f"{c_eng.metrics}")
+        if name.startswith("Full") and torch.device(dev).type == "cuda" \
+                and launches < 1:
+            raise AssertionError(f"{label}: B1 not launched")
+        res[name] = dict(max_err_vs_cpu=err, demod_full_tm=launches,
+                         b1_gate_launches=gate.stats["launches_checked"])
+        log(json.dumps({"phase": "conformance", "kernel": "soak",
+                        "case": name, "events": len(script),
+                        "outputs": len(got), "result": "pass", **res[name],
+                        "card": card}))
+    return res
+
+
+def conformance_phase(torch, dev, card) -> dict:
+    """Phase 29: the port held to the JAX package's randomized suites on
+    the card (29a-d above).  Every kernel's launches are counted over the
+    whole phase (the kernels line's conformance_launches)."""
+    from psk_soft_tpu_torch.ops.cuda import demod_kernel, frontend_kernel
+
+    t0 = time.perf_counter()
+    wrappers = dict(kernel_counts(),
+                    timing_frontend_tm=frontend_kernel.timing_frontend_tm)
+    modes = demod_kernel.demod_full_tm.mode_launches
+    launches = {}
+    parts = {}
+    for name, fn in (("b1", conformance_b1), ("b5", conformance_b5),
+                     ("fec", conformance_fec), ("soaks", conformance_soaks)):
+        for w in wrappers.values():
+            w.launches = 0
+        for k in modes:
+            modes[k] = 0
+        t = time.perf_counter()
+        parts[name] = fn(torch, dev, card)
+        torch.cuda.synchronize()
+        for k, w in wrappers.items():
+            launches[k] = launches.get(k, 0) + w.launches
+        for k, v in modes.items():
+            launches[f"demod_full_tm[{k}]"] = launches.get(
+                f"demod_full_tm[{k}]", 0) + v
+        log(json.dumps({"phase": "conformance_part", "part": name,
+                        "seconds": time.perf_counter() - t, "card": card}))
+    combos = parts["b1"]["combos"]
+    launches["demod_full_tm[config3]"] = sum(
+        v for (i16, mf, interp), v in combos.items() if i16 and mf and interp)
+    launches["demod_full_tm[stage0, int16]"] = sum(
+        v for (i16, mf, _), v in combos.items() if i16 and mf)
+    log(json.dumps({"phase": "conformance_total",
+                    "b1_cases": len(parts["b1"]["cases"]),
+                    "b5_cases": len(parts["b5"]),
+                    "fec_cases": len(parts["fec"]),
+                    "soaks": len(parts["soaks"]), "launches": launches,
+                    "seconds": time.perf_counter() - t0, "card": card}))
+    return dict(parts, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -6233,6 +6554,7 @@ def main() -> int:
             receiver22["rates"]["infobits_per_s"]})
     shard27 = sharding_phases(torch, dev, card)
     bench28 = bench_phase(torch, dev, card)
+    conf29 = conformance_phase(torch, dev, card)
     log(json.dumps({"phase": "b1_gate_near_ties",
                     "receiver": receiver22["b1_gate"],
                     "front_receiver": front23["b1_gate"],
@@ -6346,6 +6668,10 @@ def main() -> int:
     if min(r["launches"] for r in rows) < 1:
         raise AssertionError(f"a kernel was not launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
+    # Phase 29's launches of each row's kernel (stage 0 runs inside every
+    # matched-filter launch of B1).
+    conf = dict(conf29["launches"])
+    conf["demod_full_tm[stage0]"] = conf["demod_full_tm[matched_filter]"]
     kernels = []
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -6357,7 +6683,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": r.get("library_ms")})
+            "library_ms": r.get("library_ms"),
+            "conformance_launches": conf[r["name"]]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

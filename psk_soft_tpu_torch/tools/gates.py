@@ -11,6 +11,12 @@ and raises ``AssertionError`` when they are wrong.
   :func:`required_frames` names the planted frames a run must decode.
 * :func:`check_chain_steady` holds one steady block of the one-program
   chain (``models/chain`` seam tail) against the frames planted in it.
+* :func:`compare_service` holds an engine's packets against another run's
+  (the card against the CPU), and :class:`TieRecord` records the timing
+  window sums that let it rule a differing sample pick a near tie.
+* :func:`check_loopback` holds a bit-layer loopback's frames against the
+  information bits planted, and :func:`check_fec_soak` two runs of a
+  stream-FEC soak against each other.
 
 The tolerances are the JAX package's own (``tests/test_full_kernel.py:
 60-68``: soft 3e-3, phase 2e-3) and the near-tie bounds that
@@ -19,6 +25,7 @@ The tolerances are the JAX package's own (``tests/test_full_kernel.py:
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -351,3 +358,224 @@ def check_chain_steady(outs, infos: np.ndarray, rows, period: int) -> int:
         if not (msg[:, slot] == infos[:, j]).all():
             raise AssertionError("chain: info bits wrong")
     return int(found.size)
+
+
+def _window_sums(e: torch.Tensor, num_avg: int) -> np.ndarray:
+    """(C, S + num_avg - 1, sps) float64 energies -> (C, S, sps) window
+    sums on the host."""
+    cs = torch.cat([torch.zeros_like(e[:, :1]), e.cumsum(1)], 1)
+    return (cs[:, num_avg:] - cs[:, :-num_avg]).cpu().numpy()
+
+
+class TieRecord:
+    """Records the float64 timing window sums of every output a run emits,
+    in order, (C, outputs, sps): a context manager around a run of the
+    feed-forward steps (``models/blockpsk.demod_block_ff``, swapped before
+    an engine binds it) and of B1 (``models/full``'s kernel module,
+    swapped for a recording proxy as :class:`B1Gate` swaps it, and
+    composing with it).  :meth:`taint` then rules each differing sample
+    pick between two runs of the same input a near tie (both picks'
+    window sums within NEAR_TIE_REL of the largest) or a fault, and marks
+    the outputs whose tracker window (phase_avg + the trend) holds such a
+    pick.  No matched filter (its sums would be of filtered samples)."""
+
+    def __init__(self):
+        self.sums, self.spans = [], []
+
+    def __enter__(self):
+        from ..models import blockpsk, full
+
+        ff, inner = blockpsk.demod_block_ff, full.demod_kernel
+        record = self
+
+        def ff_step(cfg, state, x, assume_steady=False):
+            if cfg.matched_filter != "none":
+                raise ValueError("TieRecord takes no matched filter")
+            st, out = ff(cfg, state, x, assume_steady=assume_steady)
+            n, sps = x.shape[0], cfg.sps
+            e = torch.cat([state.win_samples, torch.as_tensor(
+                x, device=state.win_samples.device).reshape(n, -1, sps)],
+                1).to(torch.complex128).abs() ** 2
+            cols = out.valid.any(0)
+            if not torch.equal(cols, out.valid.all(0)):
+                raise ValueError("TieRecord needs one valid mask a block")
+            record._add(_window_sums(e, cfg.num_avg)[:, cols.cpu().numpy()],
+                        cfg.phase_avg)
+            return st, out
+
+        class Recorded:             # the kernel module, B1 recorded
+            def demod_full_tm(_, win_re, win_im, x_re, x_im, planes, **kw):
+                if kw.get("mf_taps"):
+                    raise ValueError("TieRecord takes no matched filter")
+                out = inner.demod_full_tm(win_re, win_im, x_re, x_im,
+                                          planes, **kw)
+                e = sum(torch.cat([w, x]).double() ** 2
+                        for w, x in ((win_re, x_re), (win_im, x_im)))
+                sps, rows = kw["sps"], out[0].shape[0] + kw["num_avg"] - 1
+                e = e[:rows * sps].reshape(rows, sps, -1).permute(2, 0, 1)
+                record._add(_window_sums(e, kw["num_avg"]), kw["phase_avg"])
+                return out
+
+            def __getattr__(_, name):
+                return getattr(inner, name)
+
+        self._restore = ((blockpsk, "demod_block_ff", ff),
+                         (full, "demod_kernel", inner))
+        blockpsk.demod_block_ff = ff_step
+        full.demod_kernel = Recorded()
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, value in self._restore:
+            setattr(mod, name, value)
+
+    def _add(self, w: np.ndarray, phase_avg: int) -> None:
+        self.sums.append(w)
+        self.spans.append(np.full(w.shape[1], phase_avg + UNWRAP_TREND_LEN))
+
+    def taint(self, got_idx: np.ndarray, ref_idx: np.ndarray):
+        """(C, N) bool of the outputs held loosely: those at or up to the
+        tracker span after a sample pick that differs between two runs at
+        a near tie.  Raises AssertionError where a pick differs at no near
+        tie.  Returns (taint, differing picks, widest gap)."""
+        w, span = np.concatenate(self.sums, 1), np.concatenate(self.spans)
+        if w.shape[:2] != got_idx.shape:
+            raise AssertionError(f"TieRecord: {w.shape[:2]} outputs "
+                                 f"recorded, {got_idx.shape} compared")
+        taint = np.zeros(got_idx.shape, bool)
+        widest = 0.0
+        for c, k in np.argwhere(got_idx != ref_idx):
+            top = w[c, k].max()
+            gap = max(top - w[c, k, got_idx[c, k]],
+                      top - w[c, k, ref_idx[c, k]]) / top
+            if not gap < NEAR_TIE_REL:
+                raise AssertionError(
+                    f"channel {c} output {k}: sample index "
+                    f"{got_idx[c, k]} against {ref_idx[c, k]}, window-sum "
+                    f"gap {gap} (near-tie bound {NEAR_TIE_REL})")
+            widest = max(widest, gap)
+            taint[c, k:k + span[k] + 1] = True
+        return taint, int((got_idx != ref_idx).sum()), widest
+
+
+def compare_service(gpu, cpu, what: str, rows=None, ties=None,
+                    soft_tol: float = SOFT_TOL) -> dict:
+    """Packet lists of an engine, one run against another of the same
+    input (the card against the CPU; either package's packets): the same
+    packets (None where None), ports, SRIs (as fields), timestamps, EOS and
+    sriChanged flags; bits and sample index equal; soft within
+    ``soft_tol`` and phase within PHASE_TOL over the finite values,
+    with NaN and inf at the same places.  ``rows`` keeps the first rows of
+    each ``gpu`` packet's (C, n) data, for a run of fewer channels.  With
+    ``ties`` (the :class:`TieRecord` of a run of ``n_ch`` channels) a
+    sample index may differ at a near tie, and the outputs it taints are
+    held to their shapes alone.  Returns the largest errors (and, with
+    ``ties``, the near ties found and the widest)."""
+    from ..runtime.streams import PORT_BITS, PORT_PHASE, PORT_SAMPLE_INDEX
+
+    worst = {"soft": 0.0, "phase": 0.0}
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{what}: {len(gpu)} vs {len(cpu)} outputs")
+    pairs = []
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if (a is None) != (b is None) or (a is not None
+                                          and set(a) != set(b)):
+            raise AssertionError(f"{what} #{i}: ports differ")
+        pair = {}
+        for port in a or {}:
+            pa, pb = a[port], b[port]
+            da, db = np.asarray(pa.data), np.asarray(pb.data)
+            if rows is not None and da.ndim == 2:
+                da = da[:rows]
+            if ((pa.t, pa.eos, pa.sri_changed)
+                    != (pb.t, pb.eos, pb.sri_changed)
+                    or dataclasses.asdict(pa.sri)
+                    != dataclasses.asdict(pb.sri)
+                    or da.shape != db.shape or da.dtype != db.dtype):
+                raise AssertionError(f"{what} #{i} {port}: metadata differs")
+            pair[port] = (da, db)
+        pairs.append(pair)
+    taint = None
+    if ties is not None:
+        n_ch = ties.sums[0].shape[0] if ties.sums else 1
+        idx = [np.concatenate([p[PORT_SAMPLE_INDEX][j].reshape(n_ch, -1)
+                               for p in pairs if p], 1).astype(np.int64)
+               for j in (0, 1)]
+        taint, worst["near_ties"], worst["near_tie_widest"] = ties.taint(
+            *idx)
+    at = 0
+    for i, pair in enumerate(pairs):
+        held = None
+        if taint is not None and pair:
+            n_out = pair[PORT_SAMPLE_INDEX][0].size // taint.shape[0]
+            held = ~taint[:, at:at + n_out]
+            at += n_out
+        for port, (da, db) in pair.items():
+            if held is not None:            # (C, n, values an output)
+                if not held.shape[1]:
+                    continue
+                da = da.reshape(held.shape + (-1,))[held]
+                db = db.reshape(held.shape + (-1,))[held]
+            if port in (PORT_BITS, PORT_SAMPLE_INDEX):
+                if not np.array_equal(da, db):
+                    raise AssertionError(f"{what} #{i} {port}: differs at "
+                                         f"{int((da != db).sum())}")
+                continue
+            fa, fb = np.isfinite(da), np.isfinite(db)
+            if not (np.array_equal(fa, fb) and np.array_equal(
+                    np.isnan(da), np.isnan(db))
+                    and np.array_equal(da[~fa & ~np.isnan(da)],
+                                       db[~fb & ~np.isnan(db)])):
+                raise AssertionError(f"{what} #{i} {port}: non-finite "
+                                     f"values differ")
+            if fa.any():
+                key = "phase" if port == PORT_PHASE else "soft"
+                worst[key] = max(worst[key], float(
+                    np.abs(da[fa] - db[fa]).max()))
+    if worst["soft"] > soft_tol or worst["phase"] > PHASE_TOL:
+        raise AssertionError(f"{what}: errors {worst}")
+    return worst
+
+
+def check_loopback(label: str, frames, starts, infos: np.ndarray,
+                   coded: bool, crc: bool) -> int:
+    """A bit-layer loopback (conformance.bitlayer_stream through the frame
+    stack): on every channel exactly one frame at each planted start,
+    its information bits (the frame bits when uncoded) those planted
+    there (``infos``: (C, starts, n_info)), the CRC green where there is
+    one.  Returns the frame count."""
+    n_ch = infos.shape[0]
+    got = {}
+    for f in frames:
+        key = (f.channel, f.start)
+        if key in got or f.start not in starts:
+            raise AssertionError(f"{label}: frame {key} decoded twice or at "
+                                 f"an unplanted start")
+        got[key] = f
+    if len(got) != n_ch * len(starts):
+        raise AssertionError(f"{label}: {len(got)} frames of "
+                             f"{n_ch * len(starts)}")
+    for (c, s0), f in got.items():
+        bits = f.info_bits if coded else f.bits
+        if (crc and f.crc_ok is not True) or not np.array_equal(
+                np.asarray(bits), infos[c, starts.index(s0)]):
+            raise AssertionError(f"{label}: frame {(c, s0)} bits or CRC "
+                                 f"wrong")
+    return len(got)
+
+
+def check_fec_soak(label: str, got, ref) -> int:
+    """Two runs of a stream-FEC soak script (conformance.run_fec_soak):
+    the same events, step counts after each and popped bits.  Returns the
+    bits compared."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} vs {len(ref)} events")
+    n = 0
+    for i, ((ev, a, sa), (ev_r, b, sb)) in enumerate(zip(got, ref)):
+        if ev != ev_r or sa != sb or (a is None) != (b is None):
+            raise AssertionError(f"{label} #{i} {ev}: steps {sa} vs {sb}")
+        if a is not None:
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{label} #{i}: popped bits differ")
+            n += a.size
+    return n

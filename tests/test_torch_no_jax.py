@@ -14,8 +14,10 @@ evaluation layer: the CLI's selftest and baseline, measure_ber,
 measure_coded_ber, measure_chain_fer and the scanned factories; then the
 CLI's gen-frames into demod-batch with frame sync and FEC, every example
 module imported, and the sharding layer: a sharded demod step on a 2 x 2
-mesh of CPU shards and a DistributedBatchEngine step in one process.  The
-walk includes tools/ (the bench, the gates, the kernel timers)."""
+mesh of CPU shards and a DistributedBatchEngine step in one process; then
+testing/conformance's case lists, a bit-layer loopback signal and the
+soak scripts.  The walk includes tools/ (the bench, the gates, the kernel
+timers)."""
 
 import os
 import subprocess
@@ -246,6 +248,12 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--frame-payload", "64", "--fec", "k7",
                      "--device", "cpu"]) == 0
     assert len(open(rx + ".frames.jsonl").read().splitlines()) >= 4
+from psk_soft_tpu_torch.testing import conformance as cf
+assert len(cf.b1_cases()) == 16 and len(cf.EQUIV_CASES) == 12
+case = cf.BITLAYER_CASES[3]
+uw, starts, infos, soft = cf.bitlayer_stream(case, 2)
+assert soft.shape[0] == 2 and len(cf.stream_soak_script(0)) == 41
+assert cf.frame_soak_script(300)[2] and cf.fec_soak_script(400)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "psk_soft_tpu")
                 and sys.modules[m] is not None)
