@@ -1,0 +1,9 @@
+"""The share of the traced stretch in which no kernel, copy or memset ran
+on the device, in percent."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
