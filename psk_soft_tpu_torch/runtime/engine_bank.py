@@ -18,26 +18,35 @@ import torch
 
 from ..config import DemodConfig
 from ..models.full import QuantSoft, dequantize_soft
+from ..utils.profiling import TRACER
 from .streams import (SRI, Packet, PORT_BITS, PORT_PHASE, PORT_SAMPLE_INDEX,
                       PORT_SOFT, propagate_sri, record_packets)
 
 
 def to_host(x):
-    """numpy copy of a tensor (None and non-tensors pass through)."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    """numpy copy of a tensor (None and non-tensors pass through); a
+    fetch from a device counts in ``psk.engine.d2h_*``."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if TRACER.on and x.device.type != "cpu":
+        TRACER.count("psk.engine.d2h_bytes", x.numel() * x.element_size())
+        TRACER.count("psk.engine.d2h_copies")
+    return x.cpu().numpy()
 
 
 @dataclasses.dataclass
 class TMOutputs:
     """Raw kernel block outputs on their way to packet assembly: the
     device-resident time-major planes as the kernel wrote them, plus the
-    flush-path row validity mask and the soft_i8 scale.  The packet fast
-    path (BankAssembler.assemble_tm) fetches these planes and builds the
-    channel-major payloads as host views."""
+    flush-path row validity mask, the soft_i8 scale and the block's
+    ordinal among the engine's steady blocks (its spans' ``block``).  The
+    packet fast path (BankAssembler.assemble_tm) fetches these planes and
+    builds the channel-major payloads as host views."""
 
     fo: object                      # models/full.FullOutputs (device)
     valid_rows: object = None       # np bool (S,) or None = all valid
     soft_scale: float | None = None
+    block: int | None = None
 
 
 class BankAssembler:
@@ -111,7 +120,8 @@ class BankAssembler:
                     for p, s in out_sri.items()
                     if not (self.skip_debug
                             and p in (PORT_PHASE, PORT_SAMPLE_INDEX))}
-        valid = to_host(out.valid)
+        with TRACER.span("psk.engine.fetch"):
+            valid = to_host(out.valid)
         v = valid[0] if valid.ndim > 1 else valid   # lockstep bank
         if self.skip_data:
             self._advance_clock(int(v.sum()), eos)
@@ -119,23 +129,28 @@ class BankAssembler:
         if not v.any():
             return self.assemble(None, eos=eos)
         soft = out.soft
-        if isinstance(soft, QuantSoft):
-            soft = QuantSoft(to_host(soft.re_q), to_host(soft.im_q),
-                             soft.scale)
-        soft = dequantize_soft(to_host(soft))[:, v]
-        bits3 = to_host(out.bits)[:, v]
+        debug = not self.skip_debug
+        with TRACER.span("psk.engine.fetch"):
+            if isinstance(soft, QuantSoft):
+                soft = QuantSoft(to_host(soft.re_q), to_host(soft.im_q),
+                                 soft.scale)
+            soft = to_host(soft)
+            bits3 = to_host(out.bits)
+            phase = to_host(out.phase) if debug else None
+            sidx = to_host(out.sample_index) if debug else None
+        soft = dequantize_soft(soft)[:, v]
         nb = self.cfg.bits_per_symbol
-        bits = bits3[:, :, :nb].reshape(bits3.shape[0], -1).astype(np.int16)
+        bits = bits3[:, v][:, :, :nb].reshape(bits3.shape[0], -1).astype(
+            np.int16)
 
         pkt = self._advance_clock(int(v.sum()), eos)
         pkts = {PORT_SOFT: pkt(soft, PORT_SOFT),
                 PORT_BITS: pkt(bits, PORT_BITS)}
-        if not self.skip_debug and out.phase is not None:
-            phase = to_host(out.phase)[:, v].astype(np.float32)
-            pkts[PORT_PHASE] = pkt(phase, PORT_PHASE)
-        if not self.skip_debug and out.sample_index is not None:
-            sidx = to_host(out.sample_index)[:, v].astype(np.int16)
-            pkts[PORT_SAMPLE_INDEX] = pkt(sidx, PORT_SAMPLE_INDEX)
+        if phase is not None:
+            pkts[PORT_PHASE] = pkt(phase[:, v].astype(np.float32), PORT_PHASE)
+        if sidx is not None:
+            pkts[PORT_SAMPLE_INDEX] = pkt(sidx[:, v].astype(np.int16),
+                                          PORT_SAMPLE_INDEX)
         return pkts
 
     def assemble_tm(self, tm: TMOutputs, eos: bool = False) -> dict[str, Packet]:
@@ -148,9 +163,10 @@ class BankAssembler:
             sv = fo.soft_re.shape[0] if v is None else int(v.sum())
             self._advance_clock(sv, eos)
             return {}
-        s_re, s_im, phase_p, packed, sidx_p = (
-            to_host(a) for a in (fo.soft_re, fo.soft_im, fo.phase,
-                                 fo.bits_packed, fo.sample_index))
+        with TRACER.span("psk.engine.fetch", tm.block):
+            s_re, s_im, phase_p, packed, sidx_p = (
+                to_host(a) for a in (fo.soft_re, fo.soft_im, fo.phase,
+                                     fo.bits_packed, fo.sample_index))
         if v is not None and not v.any():
             return self.assemble(None, eos=eos)
         if v is not None:
@@ -219,22 +235,24 @@ class _PipelinedPackets:
             self.push(c, block[c])
 
     def _emit(self, out, eos: bool = False) -> dict[str, Packet]:
-        if out is not None and self._device_tap_fn is not None:
-            self._device_tap_fn(out)
-        if isinstance(out, TMOutputs):
-            pkts = self.assembler.assemble_tm(out, eos=eos)
-        else:
-            pkts = self.assembler.assemble(out, eos=eos)
-        if self._pipe_depth:
-            # Depth 0 counts eagerly in step()/flush(); pipelined blocks are
-            # only fetched (and hence countable) here.
-            soft = pkts.get(PORT_SOFT)
-            if soft is not None:
-                self.metrics.symbols_out += int(soft.data.size)
-            bitsp = pkts.get(PORT_BITS)
-            if bitsp is not None:
-                self.metrics.bits_out += int(bitsp.data.size)
-        return record_packets(self.port_stats, pkts)
+        tm = isinstance(out, TMOutputs)
+        with TRACER.span("psk.engine.emit", out.block if tm else None):
+            if out is not None and self._device_tap_fn is not None:
+                self._device_tap_fn(out)
+            if tm:
+                pkts = self.assembler.assemble_tm(out, eos=eos)
+            else:
+                pkts = self.assembler.assemble(out, eos=eos)
+            if self._pipe_depth:
+                # Depth 0 counts eagerly in step()/flush(); pipelined blocks
+                # are only fetched (and hence countable) here.
+                soft = pkts.get(PORT_SOFT)
+                if soft is not None:
+                    self.metrics.symbols_out += int(soft.data.size)
+                bitsp = pkts.get(PORT_BITS)
+                if bitsp is not None:
+                    self.metrics.bits_out += int(bitsp.data.size)
+            return record_packets(self.port_stats, pkts)
 
     def _drain_pending(self) -> None:
         """Assemble every in-flight block now; the packets are held and

@@ -12,7 +12,6 @@ import torch
 
 from .. import state as state_mod
 from ..config import DemodConfig
-from ..utils.profiling import StepTimer
 from .engine_bank import BankAssembler, _PipelinedPackets
 from .engine_full import _nonfinite_channels, _reset_channels
 from .engine_stream import EngineMetrics, _PipelineOps, logger, \
@@ -53,7 +52,6 @@ class BatchEngine(_PipelinedPackets):
         self.metrics = EngineMetrics()
         self.channel_resyncs = np.zeros(channels, np.int64)
         self.assembler = BankAssembler(cfg)
-        self.step_timer = StepTimer()   # per-block host time
 
     def set_input_sri(self, sri: SRI, t: float = 0.0) -> None:
         """Bank input SRI for packet assembly (step_packets/flush_packets)."""
@@ -70,9 +68,8 @@ class BatchEngine(_PipelinedPackets):
 
     def _run_block(self, x: np.ndarray):
         """One block step over a staged (C, T) block; returns outputs."""
-        with self.step_timer.measure():
-            xt = torch.from_numpy(x).to(self.device)
-            self._state, out = self._ops.block(self.cfg, self._state, xt)
+        xt = torch.from_numpy(x).to(self.device)
+        self._state, out = self._ops.block(self.cfg, self._state, xt)
         return out
 
     def _count(self, out) -> None:

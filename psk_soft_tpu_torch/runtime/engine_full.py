@@ -29,6 +29,7 @@ import torch
 from ..config import DemodConfig
 from ..models import blockpsk, full as full_mod
 from ..ops.phase import UNWRAP_TREND_LEN
+from ..utils.profiling import TRACER
 from .engine_bank import BankAssembler, TMOutputs, _PipelinedPackets
 from .engine_stream import EngineMetrics, reconfigure_ff
 from .streams import SRI
@@ -113,6 +114,7 @@ class FullKernelBatchEngine(_PipelinedPackets):
         self.assembler = BankAssembler(cfg, skip_debug=not debug_ports,
                                        skip_data=not data_ports)
         self.metrics = EngineMetrics()
+        self._blocks = 0            # steady blocks stepped (spans' block)
         self._clear_stream()
 
     def _clear_stream(self) -> None:
@@ -302,6 +304,11 @@ class FullKernelBatchEngine(_PipelinedPackets):
             # Always a fresh copy on the device: the engine keeps views of
             # it as the next block's window, so it must not alias a buffer
             # the caller may reuse.
+            if TRACER.on and self.device.type != "cpu":
+                up = [p for p in ps if p.device.type == "cpu"]
+                TRACER.count("psk.engine.h2d_bytes",
+                             sum(p.numel() * p.element_size() for p in up))
+                TRACER.count("psk.engine.h2d_copies", len(up))
             if len(ps) == 1:
                 return ps[0].to(self.device, copy=True).contiguous()
             return torch.cat([p.to(self.device) for p in ps])
@@ -398,9 +405,21 @@ class FullKernelBatchEngine(_PipelinedPackets):
         steady kernel returns raw TMOutputs (time-major device planes)."""
         if not self.ready():
             return None
-        kind, blk = self._take_block(self.block_symbols * self.cfg.sps)
-        self._consumed += self.block_symbols
-        if self._full_state is None:
+        n = self.block_symbols * self.cfg.sps
+        if self._full_state is not None:
+            k = self._blocks
+            self._blocks += 1
+            with TRACER.span("psk.engine.upload", k):
+                x_re, x_im = self._tmajor(*self._take_block(n))
+            self._consumed += self.block_symbols
+            with TRACER.span("psk.engine.launch", k):
+                fo = self._steady_step(x_re, x_im)
+            if self.guard_nonfinite:
+                self._guard_full(fo)
+            out = TMOutputs(fo=fo, soft_scale=self._soft_scale, block=k)
+        else:
+            kind, blk = self._take_block(n)
+            self._consumed += self.block_symbols
             x = self._cmajor(kind, blk)
             self._track_raw(x)
             self._warm_state, out = self._warm_block(self._warm_state, x)
@@ -415,11 +434,6 @@ class FullKernelBatchEngine(_PipelinedPackets):
                 self._full_state = st
                 self._warm_state = None
                 self._raw_tail = self._raw_tail[:, :0]
-        else:
-            fo = self._steady_step(*self._tmajor(kind, blk))
-            if self.guard_nonfinite:
-                self._guard_full(fo)
-            out = TMOutputs(fo=fo, soft_scale=self._soft_scale)
         self._count(out)
         return out
 

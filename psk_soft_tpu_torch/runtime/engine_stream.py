@@ -24,7 +24,6 @@ import torch
 from .. import state as state_mod
 from ..config import DemodConfig
 from ..models import blockpsk, psk
-from ..utils.profiling import StepTimer
 from .engine_bank import to_host
 from .streams import (SRI, Packet, PortStats, PORT_BITS, PORT_PHASE,
                       PORT_SAMPLE_INDEX, PORT_SOFT, propagate_sri,
@@ -87,7 +86,6 @@ class StreamEngine:
         self._symbols_emitted = 0    # valid outputs so far (for timestamps)
         self._symbols_consumed = 0   # whole symbols fed to the device
         self.metrics = EngineMetrics()
-        self.step_timer = StepTimer()  # per-block host time
 
     # ------------------------------------------------------------- config
 
@@ -217,9 +215,8 @@ class StreamEngine:
 
     def _run_block(self, samples: np.ndarray):
         fn = self._step_fn(self._is_steady())
-        with self.step_timer.measure():
-            x = torch.from_numpy(np.array(samples[None])).to(self.device)
-            self._state, out = fn(self._state, x)
+        x = torch.from_numpy(np.array(samples[None])).to(self.device)
+        self._state, out = fn(self._state, x)
         self._symbols_consumed += samples.size // self.cfg.sps
         return out
 

@@ -1,19 +1,38 @@
 """Tracing and profiling hooks (port of ``psk_soft_tpu/utils/profiling.py``).
 
+* :data:`TRACER` -- the port's one tracer, off by default: named spans
+  (host time with self time, and a ``torch.profiler`` record while a
+  profiler records) and counters, placed at the bank engines' internal
+  boundaries (``runtime/engine_full``, ``runtime/engine_bank``):
+
+  ==========================  ======================================
+  ``psk.engine.upload``       plane staging and the host-to-device copy
+  ``psk.engine.launch``       kernel B1's host dispatch
+  ``psk.engine.emit``         tap, assembly and port statistics of one
+                              block; its self time is the assembly
+  ``psk.engine.fetch``        the device-to-host fetches of one block,
+                              any wait for the device included
+  ``psk.engine.h2d_bytes``,   bytes and copies of the plane uploads
+  ``psk.engine.h2d_copies``   (from another device than the engine's)
+  ``psk.engine.d2h_bytes``,   bytes and copies fetched by
+  ``psk.engine.d2h_copies``   ``engine_bank.to_host``
+  ==========================  ======================================
+
+  A span's ``block`` is the engine's count of steady blocks, the
+  identifier that one block's spans share.
 * :func:`trace` -- context manager around ``torch.profiler`` writing a
   Chrome/Perfetto trace into a directory.
-* :class:`StepTimer` -- per-block wall-time stats (EWMA + max) for the
-  streaming engines; cheap enough to leave on.  It reads the host clock
-  around a block step; CUDA launches return before the card finishes, so
-  on the card it measures the host's dispatch time, not the device's
-  (the engines add no synchronise for it).
-* :func:`annotate` -- named region for host-side phases: an NVTX range
-  when CUDA is present, and a ``torch.profiler`` record either way.
+* :func:`annotate` -- a named span of :data:`TRACER`.
+
+Host stamps are ``time.perf_counter_ns()``, whose origin is not the
+profiler's: a span is placed in a device trace only by its own profiler
+record, never by its stamps.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import torch
@@ -31,36 +50,128 @@ def trace(logdir: str):
         yield
 
 
-@contextlib.contextmanager
+class _Off:
+    """The span while the tracer is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "block", "t0", "child_ns", "rf", "nvtx")
+
+    def __init__(self, tracer: "Tracer", name: str, block):
+        self.tracer, self.name, self.block = tracer, name, block
+
+    def __enter__(self):
+        tr = self.tracer
+        self.rf = None
+        if torch._C._autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(
+                self.name, None if self.block is None else str(self.block))
+            self.rf.__enter__()
+        self.nvtx = tr._nvtx
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self.child_ns = 0
+        tr._stack().append(self)
+        self.t0 = tr.clock()
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tracer
+        dt = tr.clock() - self.t0
+        stack = tr._stack()
+        stack.pop()
+        if stack:
+            stack[-1].child_ns += dt
+        with tr._lock:
+            acc = tr.spans.setdefault(self.name, [0, 0, 0])
+            acc[0] += dt
+            acc[1] += dt - self.child_ns
+            acc[2] += 1
+        if self.nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+class Tracer:
+    """Named spans and counters, in memory, read by :meth:`snapshot`.
+
+    Off (the default), :meth:`span` returns one shared no-op object after
+    one attribute test and :meth:`count` returns at once: no clock
+    reading, no allocation, no torch call.  On, a span adds its host
+    duration and self time (its duration less its children's, children
+    taken from a per-thread stack) to its name's totals; while a
+    ``torch.profiler`` records it is also a ``record_function`` of its
+    name, with ``block`` as the record's args; with CUDA it is an NVTX
+    range too."""
+
+    def __init__(self, clock=time.perf_counter_ns):
+        self.on = False
+        self.clock = clock
+        self._nvtx = False
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.reset()
+
+    def enable(self) -> None:
+        self._nvtx = torch.cuda.is_available()
+        self.on = True
+
+    def disable(self) -> None:
+        self.on = False
+
+    def reset(self) -> None:
+        """Forget every total and counter (open spans still close)."""
+        with self._lock:
+            self.spans: dict[str, list] = {}   # name -> [ns, self ns, count]
+            self.counters: dict[str, int] = {}
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def span(self, name: str, block=None):
+        """Context manager timing ``name`` (``block``: the block's
+        ordinal, or None)."""
+        if not self.on:
+            return _OFF
+        return _Span(self, name, block)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if not self.on:
+            return
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def snapshot(self) -> dict:
+        """``{"spans": {name: {"seconds", "self_seconds", "count"}},
+        "counters": {name: n}}``."""
+        with self._lock:
+            return {"spans": {k: {"seconds": v[0] * 1e-9,
+                                  "self_seconds": v[1] * 1e-9,
+                                  "count": v[2]}
+                              for k, v in self.spans.items()},
+                    "counters": dict(self.counters)}
+
+
+TRACER = Tracer()
+
+
 def annotate(name: str):
-    """Named region visible in profiler traces (and in NVTX on CUDA)."""
-    with contextlib.ExitStack() as stack:
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        stack.enter_context(torch.profiler.record_function(name))
-        yield
-
-
-class StepTimer:
-    """EWMA / max / count wall-clock stats for repeated steps."""
-
-    def __init__(self, alpha: float = 0.05):
-        self.alpha = alpha
-        self.ewma_s = None
-        self.max_s = 0.0
-        self.count = 0
-        self._t0 = None
-
-    @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self.ewma_s = dt if self.ewma_s is None else (
-            self.alpha * dt + (1 - self.alpha) * self.ewma_s)
-        self.max_s = max(self.max_s, dt)
-        self.count += 1
-
-    def summary(self) -> dict:
-        return {"count": self.count, "ewma_s": self.ewma_s,
-                "max_s": self.max_s}
+    """Named region: a span of :data:`TRACER` (a profiler record and an
+    NVTX range while the tracer is on)."""
+    return TRACER.span(name)
