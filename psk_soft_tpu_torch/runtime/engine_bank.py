@@ -19,6 +19,7 @@ import torch
 from ..config import DemodConfig
 from ..models.full import QuantSoft, dequantize_soft
 from ..utils.profiling import TRACER
+from . import native_assemble
 from .streams import (SRI, Packet, PORT_BITS, PORT_PHASE, PORT_SAMPLE_INDEX,
                       PORT_SOFT, propagate_sri, record_packets)
 
@@ -41,7 +42,7 @@ class TMOutputs:
     flush-path row validity mask, the soft_i8 scale and the block's
     ordinal among the engine's steady blocks (its spans' ``block``).  The
     packet fast path (BankAssembler.assemble_tm) fetches these planes and
-    builds the channel-major payloads as host views."""
+    builds the channel-major payloads on the host."""
 
     fo: object                      # models/full.FullOutputs (device)
     valid_rows: object = None       # np bool (S,) or None = all valid
@@ -63,6 +64,7 @@ class BankAssembler:
         # unconnected too -- only the symbol clock advances.
         self.skip_debug = skip_debug
         self.skip_data = skip_data
+        native_assemble.load()      # build before the first block
         self.sri: Optional[SRI] = None
         self._dirty = True
         self._t0: Optional[float] = None
@@ -156,7 +158,8 @@ class BankAssembler:
     def assemble_tm(self, tm: TMOutputs, eos: bool = False) -> dict[str, Packet]:
         """Packet assembly straight from the kernel's time-major planes:
         fetch the raw planes, then build the same packet payloads as
-        :meth:`assemble` with host-side views and unpacks."""
+        :meth:`assemble` in one native pass a port
+        (``runtime/native_assemble``), each into a fresh array."""
         fo = tm.fo
         v = tm.valid_rows
         if self.skip_data:
@@ -175,23 +178,16 @@ class BankAssembler:
             sidx_p = None if sidx_p is None else sidx_p[v]
         pkt = self._advance_clock(s_re.shape[0], eos)
 
-        if tm.soft_scale:
-            soft_t = dequantize_soft(QuantSoft(s_re, s_im, tm.soft_scale))
-        else:
-            soft_t = np.empty(s_re.shape, np.complex64)      # (Sv, C)
-            soft_t.real = s_re
-            soft_t.imag = s_im
-        nb = self.cfg.bits_per_symbol
-        bits = ((packed.T[:, :, None] >> np.arange(nb)) & 1).astype(
-            np.int16).reshape(packed.shape[1], -1)           # (C, Sv*nb)
-
+        soft_t = native_assemble.soft(s_re, s_im, tm.soft_scale)  # (Sv, C)
+        bits = native_assemble.bits(packed, self.cfg.bits_per_symbol)
         pkts = {PORT_SOFT: pkt(soft_t.T, PORT_SOFT),         # (C, Sv) view
-                PORT_BITS: pkt(bits, PORT_BITS)}
+                PORT_BITS: pkt(bits, PORT_BITS)}             # (C, Sv*nb)
         if not self.skip_debug and phase_p is not None:
-            pkts[PORT_PHASE] = pkt(phase_p.T.astype(np.float32), PORT_PHASE)
+            pkts[PORT_PHASE] = pkt(native_assemble.phase(phase_p),
+                                   PORT_PHASE)
         if not self.skip_debug and sidx_p is not None:
-            pkts[PORT_SAMPLE_INDEX] = pkt(sidx_p.T.astype(np.int16),
-                                          PORT_SAMPLE_INDEX)
+            pkts[PORT_SAMPLE_INDEX] = pkt(
+                native_assemble.sample_index(sidx_p), PORT_SAMPLE_INDEX)
         return pkts
 
 
