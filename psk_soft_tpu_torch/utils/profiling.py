@@ -3,20 +3,24 @@
 * :data:`TRACER` -- the port's one tracer, off by default: named spans
   (host time with self time, and a ``torch.profiler`` record while a
   profiler records) and counters, placed at the bank engines' internal
-  boundaries (``runtime/engine_full``, ``runtime/engine_bank``):
+  boundaries (``runtime/engine_full``, ``runtime/engine_bank``) and in
+  the plane bank (``runtime/native_bank.NativePlaneBank``):
 
-  ==========================  ======================================
-  ``psk.engine.upload``       plane staging and the host-to-device copy
-  ``psk.engine.launch``       kernel B1's host dispatch
-  ``psk.engine.emit``         tap, assembly and port statistics of one
-                              block; its self time is the assembly
-  ``psk.engine.fetch``        the device-to-host fetches of one block,
-                              any wait for the device included
-  ``psk.engine.h2d_bytes``,   bytes and copies of the plane uploads
-  ``psk.engine.h2d_copies``   (from another device than the engine's)
-  ``psk.engine.d2h_bytes``,   bytes and copies fetched by
-  ``psk.engine.d2h_copies``   ``engine_bank.to_host``
-  ==========================  ======================================
+  ===============================  =========================================
+  ``psk.engine.upload``            plane staging and the host-to-device copy
+  ``psk.engine.launch``            kernel B1's host dispatch
+  ``psk.engine.emit``              tap, assembly and port statistics of one
+                                   block; its self time is the assembly
+  ``psk.engine.fetch``             the device-to-host fetches of one block,
+                                   any wait for the device included
+  ``psk.engine.h2d_bytes``,        bytes and copies of the plane uploads
+  ``psk.engine.h2d_copies``        (from another device than the engine's)
+  ``psk.engine.d2h_bytes``,        bytes and copies fetched by
+  ``psk.engine.d2h_copies``        ``engine_bank.to_host``
+  ``psk.bank.pop_views``           pops served as views of a ring segment
+  ``psk.bank.pop_copies``          pops copied into a new buffer
+  ``psk.bank.segments_allocated``  ring segments allocated
+  ===============================  =========================================
 
   A span's ``block`` is the engine's count of steady blocks, the
   identifier that one block's spans share.
